@@ -1,7 +1,8 @@
 """Row-partitioned distributed solve over a device mesh.
 
-On a TPU pod slice, run this same script on every host after
-``lsqr_tpu.parallel.initialize_distributed()``; here it demonstrates the
+On one host the mesh spans its cards (one process drives them all); across
+hosts run this same script in every process after
+``lsqr_tpu.parallel.initialize_distributed(...)``. Here it demonstrates the
 mesh path on whatever devices are available (use
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu to try
 an 8-way mesh without hardware)."""

@@ -2,13 +2,12 @@
 streaming path, and the RCM reorder bridge.
 
 The reference accepts arbitrary COO triples (lsqr.f90:91-127) and runs a
-serial scatter loop. On TPU scatters are the enemy; this framework packs
-the pattern into a streaming format instead:
+serial scatter loop. This framework packs the pattern into a streaming
+format where the pattern allows:
 
   auto_operator  -- inspects the pattern, picks DIA / JDIA / BlockELL / ELL
   jdia_operator  -- jittered diagonals: each nnz lands in a (diagonal
                     group, jitter slot); products stream like DIA
-                    (~180x the COO scatter path on a v5e)
   solve_general  -- for scrambled orderings: RCM-reorders rows/cols to
                     concentrate the band, solves, scatters x back
 """

@@ -1,18 +1,17 @@
-"""Fitting the largest banded problem on one chip: shared-stripe DIA.
+"""Fitting the largest banded problem on one card: shared-stripe DIA.
 
 The packed `dia_operator` keeps a transpose stripe copy so SpMV-T streams
 like SpMV; at the HBM-capacity limit that copy is the difference between
 fitting and not. `dia_shared_operator` stores ONE zero-padded stripe
-array and serves both products from it with windowed DMA — half the
-operator memory, bit-identical products (tests/test_dia_shared.py;
-measured on a v5e at 88M nnz: 339 MB vs 671 MB).
+array and serves both products from it — half the operator memory,
+bit-identical products (tests/test_dia_shared.py).
 
 Run: python examples/09_memory_capacity.py      (CPU sizes here)
 """
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # illustrative sizes — stay off TPU
+jax.config.update("jax_platforms", "cpu")  # illustrative sizes, on the CPU
 
 import numpy as np
 

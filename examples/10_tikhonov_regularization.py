@@ -20,7 +20,7 @@ offsets = tuple(range(-3, 4))
 kernel = np.exp(-0.5 * (np.arange(-3, 4) / 1.2) ** 2).astype(np.float32)
 kernel /= kernel.sum()
 data = np.repeat(kernel[:, None], n, axis=1).astype(np.float32)
-A = dia_operator(n, n, offsets, data, use_pallas=False)
+A = dia_operator(n, n, offsets, data)
 
 # ground truth: a smooth signal; measurements: blurred + noise
 t = np.linspace(0, 6 * np.pi, n).astype(np.float32)
@@ -31,7 +31,7 @@ b = np.asarray(A.matvec(x_true)) + 0.01 * rng.standard_normal(n).astype(
 
 # L: first differences (the smoothness prior), itself a DIA operator
 Ld = np.stack([-np.ones(n - 1, np.float32), np.ones(n - 1, np.float32)])
-L = dia_operator(n - 1, n, (0, 1), Ld, use_pallas=False)
+L = dia_operator(n - 1, n, (0, 1), Ld)
 
 for lam in (0.0, 0.05, 0.5):
     if lam == 0.0:

@@ -7,7 +7,7 @@ per iteration. Here: a noisy deblurring problem where the damp is chosen
 automatically — by Morozov's discrepancy principle when the noise level is
 known, by the L-curve corner when it is not.
 
-Run: python examples/12_regularization_path.py   (CPU or TPU)
+Run: python examples/12_regularization_path.py   (CPU or GPU)
 """
 
 import numpy as np
@@ -24,7 +24,7 @@ offsets = tuple(range(-4, 5))
 kernel = np.exp(-0.5 * (np.arange(-4, 5) / 1.6) ** 2).astype(np.float32)
 kernel /= kernel.sum()
 data = np.repeat(kernel[:, None], n, axis=1).astype(np.float32)
-A = dia_operator(n, n, offsets, data, use_pallas=False)
+A = dia_operator(n, n, offsets, data)
 
 t = np.linspace(0, 6 * np.pi, n).astype(np.float32)
 x_true = (np.sin(t) + 0.5 * np.sin(0.3 * t)).astype(np.float32)

@@ -5,12 +5,12 @@ bottoms out, then grows as the Krylov subspace starts fitting noise. The
 reference can only counter that with a damp fixed in advance
 (lsqr.f90:264-273). `hybrid_lsqr` regularizes the PROJECTED problem
 instead: the Golub–Kahan basis is stored (and reorthogonalized — two
-(k, n) GEMVs per step on the MXU), a tiny (k+1, k) Tikhonov problem is
+(k, n) GEMVs per step), a tiny (k+1, k) Tikhonov problem is
 solved per iteration with a GCV-chosen lambda on the host, and the
 iteration stops when the projected GCV flattens. No noise level, no damp,
 no iteration count to guess.
 
-Run: python examples/13_hybrid_regularization.py   (CPU or TPU)
+Run: python examples/13_hybrid_regularization.py   (CPU or GPU)
 """
 
 import numpy as np
@@ -27,7 +27,7 @@ offsets = tuple(range(-6, 7))
 kernel = np.exp(-0.5 * (np.arange(-6, 7) / 2.2) ** 2).astype(np.float32)
 kernel /= kernel.sum()
 data = np.repeat(kernel[:, None], n, axis=1).astype(np.float32)
-A = dia_operator(n, n, offsets, data, use_pallas=False)
+A = dia_operator(n, n, offsets, data)
 
 t = np.linspace(0, 6 * np.pi, n).astype(np.float32)
 x_true = (np.sin(t) + 0.5 * np.sin(0.3 * t)).astype(np.float32)

@@ -2,15 +2,15 @@
 
 The reference documents right preconditioning but leaves constructing M to
 the user (lsqr.f90:322-328) — in serial Fortran building a good M costs as
-much as the solve. On TPU the construction is cheap where it matters: the
-Gaussian sketch G A is matmul work on the MXU (or chunked vmapped products
+much as the solve. On the device the construction is cheap where it matters: the
+Gaussian sketch G A is matmul work (or chunked vmapped products
 for sparse operators) and the SVD of the small (s, n) sketch runs on the
 host. LSRN (Meng-Saunders-Mahoney 2014) then guarantees cond(A N) <~ 3
 w.h.p., so preconditioned LSQR converges in a few tens of iterations no
 matter how ill-conditioned A is — and rank-deficient problems, where plain
 LSQR stagnates, are handled by truncating the sketch SVD.
 
-Run: python examples/14_randomized_preconditioning.py   (CPU or TPU)
+Run: python examples/14_randomized_preconditioning.py   (CPU or GPU)
 """
 
 import numpy as np

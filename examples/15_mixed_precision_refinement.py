@@ -1,8 +1,9 @@
 """Iterative refinement: float64 answers from float32 device solves.
 
 The reference picks ONE precision at compile time (lsqr_kinds.F90:16-24)
-and its accuracy is bound by it (lsqr.f90:429-430). On TPU the fast
-precision is f32 (f64 is emulated, slow) — but the warm-start recipe the
+and its accuracy is bound by it (lsqr.f90:429-430). On the GPU the fast
+precision is f32 (f64 runs natively at about half the streaming rate) —
+but the warm-start recipe the
 reference documents (solve ``A dx = b - A x0``, lsqr.f90:303-320) becomes
 a precision LADDER the moment the residual is evaluated in f64:
 `lsqr_refined` runs Bjorck's augmented-system refinement — f32 device
@@ -11,7 +12,7 @@ converges to the f64 least-squares solution of the stored matrix.
 Ill-conditioned problems auto-switch the inner solves to an LSRN
 preconditioner so the contraction stays ~1e-6 per cycle.
 
-Run: python examples/15_mixed_precision_refinement.py   (CPU or TPU)
+Run: python examples/15_mixed_precision_refinement.py   (CPU or GPU)
 """
 
 import numpy as np

@@ -1,20 +1,21 @@
-"""lsqr_tpu — a TPU-native LSQR framework (JAX / XLA / Pallas / pjit).
+"""lsqr_tpu — LSQR and its siblings for accelerators, in JAX (XLA / Pallas).
 
 A from-scratch re-design of the capabilities of jacobwilliams/LSQR
-(Paige & Saunders, ACM TOMS 1982, Algorithm 583) for TPU hardware:
+(Paige & Saunders, ACM TOMS 1982, Algorithm 583) for accelerators, run on
+NVIDIA GPUs:
 
 * :func:`lsqr` — the core solver: Golub–Kahan bidiagonalization + Givens
   rotations as a single jitted ``lax.while_loop`` (reference core:
   /root/reference/src/lsqr.f90:432-882).
 * :class:`LSQRSolver` — class-style COO convenience API (reference EZ class:
   lsqr.f90:32-65).
-* :mod:`lsqr_tpu.ops` — operator layer: dense (MXU), COO (segment-sum),
-  structured DIA/ELL/BSR formats with Pallas TPU kernels (reference aprod:
-  lsqr.f90:67-82, 134-200).
+* :mod:`lsqr_tpu.ops` — operator layer: dense, COO (segment-sum),
+  structured DIA/ELL/BSR formats on XLA, and a Pallas (Triton) pair kernel
+  for the banded solver step (reference aprod: lsqr.f90:67-82, 134-200).
 * :func:`acheck` / :func:`xcheck` — built-in self-verification
   (lsqr.f90:908-994, 1015-1154).
 * :mod:`lsqr_tpu.parallel` — row-partitioned distributed solves over a
-  ``jax.sharding.Mesh`` with ICI collectives (no reference analogue; the
+  ``jax.sharding.Mesh`` with XLA collectives (no reference analogue; the
   reference is serial Fortran).
 * :mod:`lsqr_tpu.models` — test-problem generators, incl. the
   Paige–Saunders HY*D*HZ family (reference: test/lsqrtest_module.f90).
@@ -52,9 +53,6 @@ from .regpath import (RegPath, discrepancy_damp, gcv_damp,
 from .ops.interop import (auto_operator, csr_operator, from_bcoo,
                           from_matrix_market, from_scipy, lsqr_scipy,
                           lsmr_scipy)
-from .ops.megakernel import lsqr_megakernel, megakernel_supported
-from .ops.megakernel_lsmr import lsmr_megakernel, lsmr_megakernel_supported
-from .ops.megakernel_craig import craig_megakernel, craig_megakernel_supported
 from .ops.precondition import (
     ColumnScaledOperator,
     ComposedOperator,
@@ -72,9 +70,6 @@ from .ops.structured import (
     hyb_operator,
     ell_operator,
 )
-from .ops.wcoo import WCOOOperator, wcoo_operator
-from .ops.wwcoo import WWCOOOperator, wwcoo_operator
-from .ops.rwcoo import RWCOOOperator, rwcoo_operator
 from .ops.zdia import (ZDIAOperator, ZJDIAOperator, zdia_operator,
                        zdia_operator_device, zjdia_operator)
 from .cgls import CGLS_ISTOP_MESSAGES, CGLSResult, cgls
@@ -142,12 +137,6 @@ __all__ = [
     "from_bcoo",
     "lsqr_scipy",
     "lsmr_scipy",
-    "lsqr_megakernel",
-    "megakernel_supported",
-    "lsmr_megakernel",
-    "lsmr_megakernel_supported",
-    "craig_megakernel",
-    "craig_megakernel_supported",
     "csr_operator",
     "auto_operator",
     "DIAOperator",
@@ -160,12 +149,6 @@ __all__ = [
     "zjdia_operator",
     "zdia_operator",
     "zdia_operator_device",
-    "WCOOOperator",
-    "wcoo_operator",
-    "WWCOOOperator",
-    "wwcoo_operator",
-    "RWCOOOperator",
-    "rwcoo_operator",
     "hyb_operator",
     "ell_operator",
     "block_ell_operator",

@@ -1,12 +1,12 @@
 """Batched solves: many right-hand sides against one operator in a single
 compiled program.
 
-No reference analogue (the Fortran solves one rhs per call); on TPU,
-batching is how small/medium solves reach high utilization: ``jax.vmap``
+No reference analogue (the Fortran solves one rhs per call); on an
+accelerator, batching is how small/medium solves reach high utilization: ``jax.vmap``
 lifts the whole while_loop so all systems iterate together (each keeps its
 own istop and stops updating once converged — the masked-carry semantics of
 a vmapped while_loop), and the operator products become matrix-matrix work
-that feeds the MXU/VPU far better than lone matvecs.
+that uses the card far better than lone matvecs.
 """
 
 from __future__ import annotations
@@ -126,13 +126,6 @@ def lsqr_batch(
 
     A = as_operator(A, m=m, n=n)
     loop = opts.loop
-    if loop is None:
-        # operators whose products are Pallas kernels need the static-trip-
-        # count loop form on backends where pallas inside lax.while_loop
-        # misbehaves (BENCHMARKS.md); the batched bounded runner below
-        # composes vmap with masked fori segments instead of raising
-        # (VERDICT.md round-1 item 7)
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     B = jnp.asarray(B)
     if B.ndim != 2 or B.shape[1] != A.m:
         raise ValueError(
@@ -268,7 +261,7 @@ def _batch_setup(A, B, damp, m, n):
 
 
 def lsmr_batch(A, B, damp=0.0, *, atol=1e-6, btol=1e-6, conlim=1e8,
-               itnlim=None, safe_norms=True, loop=None, loop_segment=64,
+               itnlim=None, safe_norms=True, loop="while", loop_segment=64,
                m=None, n=None):
     """Batched LSMR: solve every row of B at once (see :func:`lsqr_batch`;
     result fields carry a leading batch dimension)."""
@@ -278,8 +271,6 @@ def lsmr_batch(A, B, damp=0.0, *, atol=1e-6, btol=1e-6, conlim=1e8,
     A, B, damp_arr, dtype = _batch_setup(A, B, damp, m, n)
     if itnlim is None:
         itnlim = min(int(A.m), int(A.n))
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     rdt = jnp.zeros((), dtype).real.dtype
     scalars = (jnp.asarray(atol, rdt), jnp.asarray(btol, rdt),
                jnp.asarray(conlim, rdt))
@@ -291,7 +282,7 @@ def lsmr_batch(A, B, damp=0.0, *, atol=1e-6, btol=1e-6, conlim=1e8,
 
 
 def cgls_batch(A, B, damp=0.0, *, atol=1e-6, btol=1e-6, itnlim=None,
-               safe_norms=True, loop=None, loop_segment=64, m=None, n=None):
+               safe_norms=True, loop="while", loop_segment=64, m=None, n=None):
     """Batched CGLS (see :func:`lsqr_batch`)."""
     import importlib
 
@@ -299,8 +290,6 @@ def cgls_batch(A, B, damp=0.0, *, atol=1e-6, btol=1e-6, itnlim=None,
     A, B, damp_arr, dtype = _batch_setup(A, B, damp, m, n)
     if itnlim is None:
         itnlim = 4 * int(A.n)
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     rdt = jnp.zeros((), dtype).real.dtype
     scalars = (jnp.asarray(atol, rdt), jnp.asarray(btol, rdt))
     so = dict(itnlim=int(itnlim), safe_norms=safe_norms)

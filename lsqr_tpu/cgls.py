@@ -24,7 +24,7 @@ recurrence collapses under f32 cancellation — measured on-chip); ``arnorm =
 (a Rayleigh-quotient bound, analogous in role to LSQR's Frobenius
 accumulation lsqr.f90:689).
 
-Built on the same TPU-native substrate as the other solvers: the
+Built on the same substrate as the other solvers: the
 ``LinearOperator`` layer, safe norms, while/bounded loop forms, and the
 ``axis_name`` hooks so row-sharded operators work unchanged.
 """
@@ -158,8 +158,8 @@ def _build(
         itn = c.itn + 1
 
         if pair:
-            # q = A p and t = A'q in ONE stripe pass (ops/pallas_spmv.
-            # dia_pair with c2 = 0); t feeds the A'r recurrence below.
+            # q = A p and t = A'q in ONE stripe pass (the operator's
+            # fused_pair with c2 = 0); t feeds the A'r recurrence below.
             q, t_adj = A.fused_pair(y=c.r, win=c.p, c1=one, c2=zero)
         else:
             q = A.matvec(c.p)
@@ -306,7 +306,7 @@ def cgls(
     itnlim: Optional[int] = None,
     x0=None,
     safe_norms: bool = True,
-    loop: Optional[str] = None,
+    loop: str = "while",
     loop_segment: int = 64,
     m: Optional[int] = None,
     n: Optional[int] = None,
@@ -395,8 +395,6 @@ def cgls(
         jnp.asarray(atol, rdt),
         jnp.asarray(btol, rdt),
     )
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _cgls_bounded(*args, seg_len=loop_segment, **kwargs)
     fn = _cgls_jit if _jit else _cgls_impl

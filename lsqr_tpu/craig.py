@@ -16,7 +16,7 @@ Recurrence: with ``L_k`` lower-bidiagonal (diag ``alpha_i``, subdiag
 y_{i-1}`` (``y_1 = beta_1/alpha_1``), ``x_k = x_{k-1} + y_k v_k``, and the
 residual satisfies ``||r_k|| = |beta_{k+1} y_k|`` exactly.
 
-Built on the same TPU-native substrate as the other solvers: the
+Built on the same substrate as the other solvers: the
 ``LinearOperator`` layer, safe norms, while/bounded loop forms, and the
 ``axis_name`` hooks so row-sharded operators work unchanged.
 """
@@ -161,7 +161,7 @@ def _build(
 
         # bidiagonalization step: beta_{k+1} u_{k+1} = A v_k - alpha_k u_k
         if pair:
-            # both products in ONE stripe pass (ops/pallas_spmv.dia_pair)
+            # both products in ONE stripe pass (the operator's fused_pair)
             u, z_adj = A.fused_pair(y=c.u, win=c.v, c1=one, c2=c.alpha)
         else:
             u = A.matvec(c.v) - c.alpha * c.u
@@ -278,11 +278,10 @@ def craig(
     itnlim: Optional[int] = None,
     x0=None,
     safe_norms: bool = True,
-    loop: Optional[str] = None,
+    loop: str = "while",
     loop_segment: int = 64,
     m: Optional[int] = None,
     n: Optional[int] = None,
-    megakernel: Optional[bool] = None,
     pair: Optional[bool] = None,
     _jit: bool = True,
 ) -> CRAIGResult:
@@ -309,28 +308,6 @@ def craig(
         raise ValueError(
             f"b must be a vector of length m = {A.m}; got shape {b.shape}"
         )
-
-    if megakernel is not False and _jit and not isinstance(b, jax.core.Tracer):
-        from .ops.megakernel_craig import (
-            craig_megakernel,
-            craig_megakernel_supported,
-        )
-
-        supported = dtype == jnp.float32 and craig_megakernel_supported(A)
-        if megakernel is None:
-            # auto-routing OFF: the regular path wins at every supported
-            # size on the measured backend (LSQROptions.megakernel docs).
-            megakernel = False
-        if megakernel:
-            if not supported:
-                raise ValueError(
-                    "megakernel=True requires an f32 DIA operator whose "
-                    "vectors fit VMEM"
-                )
-            return craig_megakernel(
-                A, b, atol=atol, btol=btol, itnlim=itnlim,
-                interpret=jax.default_backend() != "tpu", x0=x0,
-            )
 
     if x0 is not None:
         x0 = jnp.asarray(x0, dtype)
@@ -360,8 +337,6 @@ def craig(
         jnp.asarray(atol, rdt),
         jnp.asarray(btol, rdt),
     )
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _craig_bounded(*args, seg_len=loop_segment, **kwargs)
     fn = _craig_jit if _jit else _craig_impl

@@ -18,10 +18,10 @@ The hybrid approach (Chung, Nagy & O'Leary 2008 "HyBR"; O'Leary & Simmons
 3. x_k = V_k y_k; stop when the GCV value stabilizes/increases
    (semiconvergence detected on the projected problem, not by eye).
 
-TPU-native split: the expensive part (the products + the (k, n) basis
+Device/host split: the expensive part (the products + the (k, n) basis
 buffer) is one jitted ``lax.fori_loop`` with optional full
 reorthogonalization of v against the stored basis (two extra GEMVs per
-iteration on the MXU — this is what keeps the projected problem faithful in
+iteration — this is what keeps the projected problem faithful in
 f32); the tiny dense B_k analysis runs in numpy on the host.
 
 ``golub_kahan`` is also exposed on its own: the stored-basis factorization
@@ -40,6 +40,9 @@ import numpy as np
 
 from .ops.blas import nrm2
 from .ops.linop import as_operator
+
+#: float32 products feeding a solver run at full precision, not TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["GKBasis", "golub_kahan", "HybridResult", "hybrid_lsqr",
            "projected_tikhonov", "gcv_lambda"]
@@ -112,14 +115,14 @@ def _gk_impl(A, b, *, k: int, reorth: bool, safe_norms: bool):
         if reorth:
             # full one-sided reorthogonalization against the stored basis:
             # rows > i-1 are still zero so they contribute nothing. Two
-            # GEMVs on the (k, n) buffer — MXU work, negligible next to
+            # GEMVs on the (k, n) buffer — negligible next to
             # the operator products for k << nnz/n. The projection
             # coefficients are <v_i, v_cand> = conj(V) @ v_cand (conj is
             # the identity for real bases).
-            coeff = jnp.conj(V) @ v_cand
+            coeff = jnp.matmul(jnp.conj(V), v_cand, precision=_HIGHEST)
             if axis_n is not None:
                 coeff = jax.lax.psum(coeff, axis_n)
-            v_cand = v_cand - V.T @ coeff
+            v_cand = v_cand - jnp.matmul(V.T, coeff, precision=_HIGHEST)
         alpha_new = norm_n(v_cand)
         apos = alpha_new > zero
         safe_alpha = jnp.where(apos, alpha_new, one)
@@ -238,7 +241,7 @@ def hybrid_lsqr(
         Chung-Nagy-O'Leary, smoother for severely ill-posed problems).
       reorth: full reorthogonalization of the v-basis (keeps the projected
         problem faithful; strongly recommended — it is what makes this
-        reliable in f32 on TPU).
+        reliable in f32).
       stop_window: stop early once the per-iteration GCV minimum has not
         improved *significantly* for this many consecutive steps
         (semiconvergence detection); the basis is still returned up to the
@@ -296,7 +299,8 @@ def hybrid_lsqr(
     Bb[np.arange(best_k), np.arange(best_k)] = alphas[:best_k]
     Bb[np.arange(1, best_k + 1), np.arange(best_k)] = betas[1:best_k + 1]
     y = projected_tikhonov(Bb, beta0, best_lam)
-    x = jnp.asarray(y, basis.V.dtype) @ basis.V[:best_k]
+    x = jnp.matmul(jnp.asarray(y, basis.V.dtype), basis.V[:best_k],
+                   precision=_HIGHEST)
     return HybridResult(
         x=x, lam=best_lam, k=best_k, k_run=k_run,
         gcv=gcv_hist[:k_run], lambdas=lam_hist[:k_run], basis=basis,

@@ -6,9 +6,9 @@ a second QR factorization so that the iterates minimize ``||A' r||`` — which
 then decreases monotonically, making LSMR safer to stop early on
 ill-conditioned least-squares problems. The reference library points to LSMR
 as the companion algorithm (same authors' site); this module provides it on
-the identical TPU-native substrate: the same ``LinearOperator`` layer (COO /
-DIA / ELL / JDIA / Pallas kernels), the same safe-norm primitives, the same
-bounded-loop form for Pallas-product operators, and the same
+the identical substrate: the same ``LinearOperator`` layer (COO /
+DIA / ELL / JDIA, and the Triton pair kernel), the same safe-norm
+primitives, the same bounded-loop form, and the same
 ``axis_name`` hooks so row-sharded operators work unchanged.
 
 Semantics (istop taxonomy 0-7, defaults, result fields) follow the public
@@ -244,7 +244,7 @@ def _build(
 
         # --- bidiagonalization step (identical to LSQR's) ---------------
         if pair:
-            # ONE stripe pass for both products (ops/pallas_spmv.dia_pair):
+            # ONE stripe pass for both products (the operator's fused_pair):
             # u_raw = A v - alpha u and the raw adjoint z = A'u_raw; the
             # 1/beta normalization commutes with A'.
             u, z_adj = A.fused_pair(y=c.u, win=c.v, c1=one, c2=c.alpha)
@@ -452,11 +452,10 @@ def lsmr(
     x0=None,
     record_trace: bool = False,
     safe_norms: bool = True,
-    loop: Optional[str] = None,
+    loop: str = "while",
     loop_segment: int = 64,
     m: Optional[int] = None,
     n: Optional[int] = None,
-    megakernel: Optional[bool] = None,
     pair: Optional[bool] = None,
     _jit: bool = True,
 ) -> LSMRResult:
@@ -492,32 +491,6 @@ def lsmr(
     eps = float(jnp.finfo(rdt).eps)
     atol = eps if atol == 0 else atol
     btol = eps if btol == 0 else btol
-
-    if megakernel is not False and _jit and not isinstance(b, jax.core.Tracer):
-        from .ops.megakernel_lsmr import (
-            lsmr_megakernel,
-            lsmr_megakernel_supported,
-        )
-
-        supported = (
-            dtype == jnp.float32
-            and lsmr_megakernel_supported(A, record_trace=record_trace)
-        )
-        if megakernel is None:
-            # auto-routing OFF: the regular path wins at every supported
-            # size on the measured backend (LSQROptions.megakernel docs).
-            megakernel = False
-        if megakernel:
-            if not supported:
-                raise ValueError(
-                    "megakernel=True requires an f32 DIA operator whose "
-                    "vectors fit VMEM, without record_trace"
-                )
-            return lsmr_megakernel(
-                A, b, damp, atol=atol, btol=btol, conlim=conlim,
-                itnlim=itnlim,
-                interpret=jax.default_backend() != "tpu", x0=x0,
-            )
 
     if x0 is not None:
         x0 = jnp.asarray(x0, dtype)
@@ -570,8 +543,6 @@ def lsmr(
         jnp.asarray(btol, rdt),
         jnp.asarray(conlim, rdt),
     )
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _lsmr_bounded(*args, seg_len=loop_segment, **kwargs)
     fn = _lsmr_jit if _jit else _lsmr_impl

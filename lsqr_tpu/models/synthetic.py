@@ -3,7 +3,7 @@
 These fill the benchmark configurations named in BASELINE.json ("Large
 synthetic banded/random CSR matrix (~10M nnz)") — the reference publishes
 no throughput benchmarks (SURVEY.md §6), so these matrices establish the
-TPU framework's fresh performance baseline.
+framework's fresh performance baseline.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ cost for a banded operator with nd diagonals:
     lsqr_multidamp:          2*nd*m  +  ~(6k+11)m
 
 — for nd = 11, k = 8 damps that is ~5x less traffic than eight separate
-solves (and with the pair kernel, nd*m + (6k+11)m). This is the TPU-native
+solves (and with the pair kernel, nd*m + (6k+11)m). This is the
 answer to regularization sweeps (L-curves, discrepancy-principle searches,
 cross-validation over the Tikhonov weight): the reference can only re-run
 LSQR per damp (test driver loop, /root/reference/test/lsqrtest_module.f90:65-90
@@ -537,7 +537,7 @@ def lsqr_multidamp(
       damps: array-like of k non-negative damping values. They may be in
         any order; each gets its own stopping decision and istop.
       options / option_overrides: :class:`LSQROptions`. ``record_trace``,
-        ``debug_log`` and megakernel routing are not supported here;
+        ``debug_log`` are not supported here;
         ``pair`` (the one-stripe-pass product-pair kernel) and
         ``scalar_dtype`` mixed precision are.
 
@@ -601,8 +601,6 @@ def lsqr_multidamp(
         jnp.asarray(opts.conlim, dtype),
     )
     loop = opts.loop
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _md_bounded(*args, seg_len=opts.loop_segment, **kwargs)
     return _md_jit(*args, **kwargs)
@@ -943,7 +941,7 @@ def lsmr_multidamp(
     conlim: float = 1e8,
     itnlim: Optional[int] = None,
     safe_norms: bool = True,
-    loop: Optional[str] = None,
+    loop: str = "while",
     loop_segment: int = 64,
     pair: Optional[bool] = None,
     m: Optional[int] = None,
@@ -997,8 +995,6 @@ def lsmr_multidamp(
         jnp.asarray(btol, dtype),
         jnp.asarray(conlim, dtype),
     )
-    if loop is None:
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _mdl_bounded(*args, seg_len=loop_segment, **kwargs)
     return _mdl_jit(*args, **kwargs)

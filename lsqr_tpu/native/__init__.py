@@ -23,7 +23,6 @@ __all__ = [
     "block_pack",
     "coo_dedup",
     "jdia_assign",
-    "wcoo_pack_chunks",
 ]
 
 _LIB = None
@@ -124,11 +123,6 @@ def _declare(lib):
             i64p, i64p, fp, i64, i64, i32, i32, i32, i32p, i64p, i32p,
             fp, i8p,
         ]
-    lib.lsqr_wcoo_pack.restype = i64
-    lib.lsqr_wcoo_pack.argtypes = [
-        i64p, i64p, f32p, i64, i64, i64, i64, i32, i32, i32,
-        f32p, i32p, i32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p,
-    ]
 
 
 def available() -> bool:
@@ -300,62 +294,6 @@ def coo_dedup(rows, cols, vals):
     vals = vals.copy()
     out = int(getattr(lib, f"lsqr_coo_dedup_{sfx}")(rows, cols, vals, nnz))
     return rows[:out], cols[:out], vals[:out]
-
-
-# ---------------------------------------------------------------------------
-# WCOO chunk packing
-# ---------------------------------------------------------------------------
-
-
-def wcoo_pack_chunks(rows, cols, vals, nc, emax, npad, cr, ku_max, kb_max):
-    """The per-chunk hot path of ops/wcoo.wcoo_pack (round-5 item 8):
-    bucket + stable (row, col) sort + all per-chunk tables, thread-parallel
-    over chunks, bit-identical to the numpy pipeline. Returns the dict of
-    arrays + (kb_req, ku_req), or None if the native library is
-    unavailable (caller falls back to the numpy loop). Raises ValueError
-    with the numpy path's message shapes on window violations."""
-    lib = _lib()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, np.int64)
-    cols = np.ascontiguousarray(cols, np.int64)
-    vals = np.ascontiguousarray(vals, np.float32)
-    nnz = len(rows)
-    eb = emax // 1024
-    out = dict(
-        vals_p=np.zeros((nc, emax), np.float32),
-        col_p=np.zeros((nc, emax), np.int32),
-        rowl_p=np.zeros((nc, emax), np.int32),
-        vals_r=np.zeros((nc, emax), np.float32),
-        col_r=np.zeros((nc, emax), np.int32),
-        ep=np.zeros((nc, eb * npad), np.int32),
-        gpe=np.zeros((nc, cr), np.int32),
-        ugb=np.zeros((nc, 1, eb), np.int32),
-        bnb=np.zeros((nc, 1, cr // 128), np.int32),
-    )
-    err = np.zeros(3, np.int64)
-    rc = int(lib.lsqr_wcoo_pack(
-        rows, cols, vals, nnz, nc, emax, npad, np.int32(cr),
-        np.int32(ku_max), np.int32(kb_max),
-        out["vals_p"], out["col_p"], out["rowl_p"], out["vals_r"],
-        out["col_r"], out["ep"], out["gpe"].reshape(-1),
-        out["ugb"].reshape(-1), out["bnb"].reshape(-1), err,
-    ))
-    if rc == -1:
-        raise ValueError(
-            f"row span {int(err[2])} in one entry subtile exceeds "
-            f"{ku_max} 128-row u-window slices (chunk {int(err[0])}, "
-            f"subtile {int(err[1])})"
-        )
-    if rc == -2:
-        raise ValueError(
-            f"entry span {int(err[2])} under 128 rows exceeds "
-            f"{kb_max} 1024-entry S-windows (chunk {int(err[0])}, "
-            f"rows {int(err[1])}..)"
-        )
-    out["kb_req"] = int(rc >> 16)
-    out["ku_req"] = int(rc & 0xFFFF)
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 // Native sparse-ingest kernels for lsqr_tpu.
 //
-// The reference library is 100% compiled Fortran (SURVEY.md §2.1); in the
-// TPU build the device math is compiled by XLA/Mosaic, and THIS file is the
-// compiled host-side runtime: packing COO triplets into the TPU-friendly
-// layouts (ELL, blocked-ELL, CSR) and preparing row partitions. These are
+// The reference library is 100% compiled Fortran (SURVEY.md §2.1); here the
+// device math is compiled by XLA, and THIS file is the compiled host-side
+// runtime: packing COO triplets into the device layouts (ELL, blocked-ELL,
+// CSR, JDIA) and preparing row partitions. These are
 // the O(nnz) host loops that would otherwise run as interpreted Python for
 // matrices with 10M+ nonzeros.
 //
@@ -279,194 +279,5 @@ DEFINE_DEDUP(f64, double)
 
 DEFINE_JDIA_ASSIGN(f32, float)
 DEFINE_JDIA_ASSIGN(f64, double)
-
-// ---------------------------------------------------------------------------
-// WCOO chunk packing (ops/wcoo.wcoo_pack hot path; round-5 item 8).
-//
-// Replaces the per-chunk numpy pipeline: bucket entries by 16384-row chunk,
-// per chunk (thread-parallel) stable-sort by (rowlocal, col), emit the
-// row-sorted copy, gpe/ugb/bnb window tables, the within-subtile col-sorted
-// copy, and the dense per-subtile column boundary tables — bit-identical to
-// the numpy path (same stable orders, same padding rules).
-//
-// Inputs: raw UNSORTED triplets (int64 rows/cols, f32 vals). Outputs are
-// pre-zeroed by the caller with the numpy-path shapes. Returns
-// (kb_req << 16) | ku_req on success; -1 (ku violation) or -2 (kb
-// violation) with err_info = {chunk, subtile/rowgroup, span}.
-// ---------------------------------------------------------------------------
-int64_t lsqr_wcoo_pack(const int64_t* rows, const int64_t* cols,
-                       const float* vals, int64_t nnz, int64_t nc,
-                       int64_t emax, int64_t npad, int32_t cr,
-                       int32_t ku_max, int32_t kb_max, float* vals_p,
-                       int32_t* col_p, int32_t* rowl_p, float* vals_r,
-                       int32_t* col_r, int32_t* ep, int32_t* gpe,
-                       int32_t* ugb, int32_t* bnb, int64_t* err_info) {
-  const int64_t eb = emax / 1024;
-  const int64_t ub = cr / 128;
-  // ---- bucket by chunk (stable: original order kept within chunk) ----
-  std::vector<int64_t> cnt(nc + 1, 0);
-  for (int64_t i = 0; i < nnz; ++i) ++cnt[rows[i] / cr + 1];
-  for (int64_t t = 0; t < nc; ++t) cnt[t + 1] += cnt[t];
-  struct Ent { int32_t key; float val; };  // key = rowl << 12 | col
-  std::vector<Ent> ents(nnz);
-  {
-    std::vector<int64_t> fill(cnt.begin(), cnt.end() - 1);
-    for (int64_t i = 0; i < nnz; ++i) {
-      int64_t t = rows[i] / cr;
-      int32_t rowl = (int32_t)(rows[i] - t * cr);
-      ents[fill[t]++] = {(int32_t)((rowl << 12) | (int32_t)cols[i]),
-                         vals[i]};
-    }
-  }
-  std::vector<int32_t> ku_req_w, kb_req_w;
-  std::vector<int64_t> err_w;
-  int64_t n_threads =
-      std::max<int64_t>(1, std::thread::hardware_concurrency());
-  n_threads = std::min<int64_t>(n_threads, nc);
-  ku_req_w.assign(n_threads, 1);
-  kb_req_w.assign(n_threads, 1);
-  err_w.assign(n_threads * 4, 0);  // {code, chunk, idx, span}
-
-  auto work = [&](int64_t w, int64_t t0, int64_t t1) {
-    std::vector<int32_t> order(1024);
-    std::vector<int64_t> rc(cr);
-    std::vector<int32_t> subcol(1024), subrow(1024);
-    std::vector<float> subval(1024);
-    for (int64_t t = t0; t < t1; ++t) {
-      if (err_w[w * 4]) return;
-      Ent* seg = ents.data() + cnt[t];
-      const int64_t k = cnt[t + 1] - cnt[t];
-      std::stable_sort(seg, seg + k,
-                       [](const Ent& a, const Ent& b) { return a.key < b.key; });
-      float* vr = vals_r + t * emax;
-      int32_t* crow = col_r + t * emax;
-      int32_t* rl = rowl_p + t * emax;  // scratch: row-sorted rowl first
-      const int32_t pad_rowl = k ? (seg[k - 1].key >> 12) : 0;
-      for (int64_t i = 0; i < emax; ++i) {
-        if (i < k) {
-          vr[i] = seg[i].val;
-          crow[i] = seg[i].key & 4095;
-          rl[i] = seg[i].key >> 12;
-        } else {  // zero padding on the LAST real row, column 0
-          vr[i] = 0.0f;
-          crow[i] = 0;
-          rl[i] = pad_rowl;
-        }
-      }
-      // ---- gpe: (#entries with rowl <= r) - 1, capped at k - 1 ----
-      std::fill(rc.begin(), rc.end(), 0);
-      for (int64_t i = 0; i < emax; ++i) ++rc[rl[i]];
-      {
-        int64_t acc = 0;
-        int32_t* g = gpe + t * cr;
-        for (int64_t r = 0; r < cr; ++r) {
-          acc += rc[r];
-          int64_t v = acc - 1;
-          if (v > k - 1) v = k - 1;
-          g[r] = (int32_t)v;
-        }
-      }
-      // ---- u-gather window bases per subtile ----
-      for (int64_t i = 0; i < eb; ++i) {
-        int64_t rmin = rl[i * 1024];
-        int64_t rmax = rl[i * 1024 + 1023];
-        int64_t base = rmin & ~(int64_t)127;
-        int64_t need = (rmax - base + 1 + 127) / 128;
-        if (need > ku_max) {
-          err_w[w * 4] = -1;
-          err_w[w * 4 + 1] = t;
-          err_w[w * 4 + 2] = i;
-          err_w[w * 4 + 3] = rmax - rmin;
-          return;
-        }
-        ugb[t * eb + i] = (int32_t)base;
-        if ((int32_t)need > ku_req_w[w]) ku_req_w[w] = (int32_t)need;
-      }
-      // ---- within-subtile stable col sort -> col-sorted copy ----
-      float* vp = vals_p + t * emax;
-      int32_t* cp = col_p + t * emax;
-      for (int64_t i = 0; i < eb; ++i) {
-        const int64_t off = i * 1024;
-        for (int32_t j = 0; j < 1024; ++j) order[j] = j;
-        const int32_t* cc = crow + off;
-        std::stable_sort(order.begin(), order.end(),
-                         [cc](int32_t a, int32_t b) { return cc[a] < cc[b]; });
-        for (int32_t j = 0; j < 1024; ++j) {
-          int32_t s = order[j];
-          subcol[j] = cc[s];
-          subrow[j] = rl[off + s];
-          subval[j] = vr[off + s];
-        }
-        std::memcpy(cp + off, subcol.data(), 1024 * sizeof(int32_t));
-        std::memcpy(vp + off, subval.data(), 1024 * sizeof(float));
-        // rowl_p becomes the col-sorted rowl AFTER ugb/gpe consumed the
-        // row-sorted version for this subtile
-        for (int32_t j = 0; j < 1024; ++j) rl[off + j] = subrow[j];
-        // ---- dense column boundary table for this subtile ----
-        int32_t* e = ep + (t * eb + i) * npad;
-        int64_t pos = 0;
-        int32_t run = -1;
-        for (int64_t d = 0; d < npad; ++d) {
-          while (pos < 1024 && subcol[pos] == d) {
-            ++run;
-            ++pos;
-          }
-          e[d] = run;
-        }
-      }
-      // ---- boundary window bases per 128-row sublane-row ----
-      const int32_t* g = gpe + t * cr;
-      for (int64_t j = 0; j < ub; ++j) {
-        int64_t last = g[j * 128 + 127];
-        int64_t first = INT64_MAX;
-        for (int64_t r = 0; r < 128; ++r)
-          if (g[j * 128 + r] >= 0 && g[j * 128 + r] < first)
-            first = g[j * 128 + r];
-        if (first == INT64_MAX) first = last > 0 ? last : 0;
-        int64_t span = last - first;
-        int64_t need = (span + 128 + 1023) / 1024;
-        if (need < 1) need = 1;
-        if (need > kb_max) {
-          err_w[w * 4] = -2;
-          err_w[w * 4 + 1] = t;
-          err_w[w * 4 + 2] = j * 128;
-          err_w[w * 4 + 3] = span;
-          return;
-        }
-        if ((int32_t)need > kb_req_w[w]) kb_req_w[w] = (int32_t)need;
-        int64_t base = last - (need * 1024 - 1);
-        if (base < 0) base = 0;
-        base = ((base + 127) / 128) * 128;  // round UP (keeps cover)
-        int64_t cap = emax - 1024;
-        if (cap < 0) cap = 0;
-        if (base > cap) base = cap;
-        bnb[t * ub + j] = (int32_t)base;
-      }
-    }
-  };
-
-  {
-    std::vector<std::thread> pool;
-    const int64_t per = (nc + n_threads - 1) / n_threads;
-    for (int64_t w = 0; w < n_threads; ++w) {
-      const int64_t b = w * per;
-      const int64_t e = std::min(nc, b + per);
-      if (b < e) pool.emplace_back(work, w, b, e);
-    }
-    for (auto& th : pool) th.join();
-  }
-  int32_t ku_req = 1, kb_req = 1;
-  for (int64_t w = 0; w < n_threads; ++w) {
-    if (err_w[w * 4]) {
-      err_info[0] = err_w[w * 4 + 1];
-      err_info[1] = err_w[w * 4 + 2];
-      err_info[2] = err_w[w * 4 + 3];
-      return err_w[w * 4];
-    }
-    if (ku_req_w[w] > ku_req) ku_req = ku_req_w[w];
-    if (kb_req_w[w] > kb_req) kb_req = kb_req_w[w];
-  }
-  return ((int64_t)kb_req << 16) | (int64_t)ku_req;
-}
 
 }  // extern "C"

@@ -7,7 +7,7 @@ into neighbouring ops. What *does* need care is the overflow-safe 2-norm
 (``dnrm2``'s scale/ssq loop, lsqrblas.f90:143-154) and the safe scalar hypot
 (``d2norm``, lsqr.f90:1164-1179) — both provided here with the same
 robustness guarantees expressed as data-parallel reductions instead of
-sequential loops, so they map onto the TPU VPU and fuse under jit.
+sequential loops, so they fuse under jit.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def nrm2(x: jax.Array, *, safe: bool = True, axis_name=None) -> jax.Array:
 
     Functional equivalent of the reference ``dnrm2`` (lsqrblas.f90:123-159),
     which uses a sequential scale/sum-of-squares recurrence. Here: a max
-    reduction picks the scale, then a scaled sum of squares — two VPU
+    reduction picks the scale, then a scaled sum of squares — two
     reductions XLA fuses into one pass. With ``safe=False`` it is the plain
     ``sqrt(sum(x^2))`` (faster; fine at f64 and for well-scaled data).
 

@@ -3,7 +3,7 @@ class's scatter-accumulate SpMV kernels (/root/reference/src/lsqr.f90:134-200).
 
 The reference loops over nnz serially, scattering ``Ax(irow(i)) += a(i) *
 x(icol(i))`` (mode 1, lsqr.f90:168-172) and the symmetric column scatter for
-the transpose (mode 2, lsqr.f90:188-192). The TPU-native formulation is one
+the transpose (mode 2, lsqr.f90:188-192). The data-parallel formulation is one
 gather + one segment-sum per product:
 
     matvec:  segment_sum(vals * x[cols], rows, m)

@@ -1,7 +1,7 @@
 """Host-side (numpy/scipy, float64) export of operators.
 
 Every storage format in this package is a device-resident packing tuned
-for TPU streaming; this module walks those packings BACK into plain COO
+for device streaming; this module walks those packings BACK into plain COO
 triplets on the host, without materializing a dense matrix. Two users:
 
 - interop: ``to_scipy(A)`` is the inverse of ``ops.interop.from_scipy``

@@ -1,10 +1,10 @@
 """Interop constructors: build lsqr_tpu operators from scipy.sparse
-matrices, CSR triples, or dense arrays, picking a TPU-appropriate storage
+matrices, CSR triples, or dense arrays, picking a device storage
 format.
 
 The reference accepts only a COO triple (lsqr.f90:91-127); production users
 usually hold scipy CSR/CSC/COO — these helpers bridge that world and choose
-between the TPU formats:
+between the storage formats:
 
 * DIA      — if the pattern is banded (few distinct diagonals)
 * BlockELL — if the pattern is blocky at 128x128 (dense-block fill high)
@@ -65,11 +65,10 @@ def from_bcoo(mat, *, dtype=None, format: Optional[str] = None) -> LinearOperato
     """Convert a ``jax.experimental.sparse`` matrix (BCOO or BCSR) to an
     lsqr_tpu operator.
 
-    JAX's own sparse types compute SpMV with scatter/gather primitives that
-    hit the same TPU cliff as the plain COO path (BENCHMARKS.md: 0.1 Gnnz/s);
-    repacking into the structured formats (DIA/JDIA/BlockELL via
-    :func:`auto_operator`, or an explicit ``format``) recovers the streaming
-    kernels. The reference accepts only an in-memory COO triple
+    JAX's own sparse types compute SpMV with scatter/gather primitives, as
+    the plain COO path does; repacking into the structured formats
+    (DIA/JDIA/BlockELL via :func:`auto_operator`, or an explicit
+    ``format``) recovers the streaming products. The reference accepts only an in-memory COO triple
     (lsqr.f90:91-127); this is the bridge for users already holding
     jax-native sparse arrays.
 
@@ -120,7 +119,7 @@ def from_bcoo(mat, *, dtype=None, format: Optional[str] = None) -> LinearOperato
 def csr_operator(m, n, indptr, indices, data, *, dtype=None, format="ell"):
     """Build an operator from CSR arrays (the format most sparse pipelines
     hold). The CSR is expanded to COO triplets and packed into the requested
-    TPU storage format ('ell', 'coo', or 'block')."""
+    storage format ('ell', 'coo', or 'block')."""
     indptr = np.asarray(indptr)
     indices = np.asarray(indices)
     data = np.asarray(data, dtype=dtype if dtype else None)
@@ -202,24 +201,14 @@ def _block_fill_ratio(rows, cols, m, n, bh=128, bw=128):
 
 def auto_operator(m, n, vals, rows, cols, *, dtype=None,
                   compact=False) -> LinearOperator:
-    """Pick a TPU storage format from the sparsity pattern:
+    """Pick a storage format from the sparsity pattern:
 
     1. few distinct diagonals covering all nnz        -> DIA
-       (shared-stripe layout for f32 — faster carry pair + half the
-       operator HBM; packed DIA for f64; ZDIA for complex)
+       (shared-stripe layout for f32 — the Triton pair on a GPU and half
+       the operator memory; packed DIA for f64; ZDIA for complex)
     2. jitter-bounded diagonals (>=95% slot fit)      -> JDIA (ZJDIA complex)
-    3. unstructured f32, tall (m >= 16384), not blocky
-       at (128, 128) (fill ratio > 4x):
-       n <= 4096                                      -> WCOO
-       4096 < n <= 262,144, column-concentrated       -> RWCOO (hot/cold)
-    4. blocky at (128, 128) (fill ratio <= 64x nnz)   -> BlockELL
-    5. otherwise                                      -> HYB (ELL + COO spill)
-
-    WCOO note: its packing stores two copies of the entry stream plus a
-    dense per-subtile adjoint boundary table — worst case ~16 extra bytes
-    per real entry at n=4096 (see :func:`lsqr_tpu.wcoo_operator`), which
-    the blocky gate and the pack-quality checks weigh against the ~25x
-    product-throughput win over COO.
+    3. blocky at (128, 128) (fill ratio <= 64x nnz)   -> BlockELL
+    4. otherwise                                      -> HYB (ELL + COO spill)
 
     ``compact=True`` forces the shared-stripe DIA form in case 1 for
     NON-f32 dtypes too (f32 banded patterns use it by default — see
@@ -271,20 +260,16 @@ def auto_operator(m, n, vals, rows, cols, *, dtype=None,
         eff = (jnp.dtype(dtype) if dtype is not None
                else jnp.empty((), vals_np.dtype).dtype)
         if compact or eff == jnp.float32:
-            # shared-stripe layout is the f32 default since round 5: the
-            # carry pair measures FASTER than the packed layout (112-125
-            # vs 104-106 Gnnz/s; solves 1.38 vs 1.63 ms/iter at m=2^23)
-            # AND uses half the operator HBM. f64 (the x64 conformance
-            # mode) keeps the packed layout.
+            # shared-stripe layout for f32: half the operator memory, and
+            # the layout of the GPU pair kernel. f64 keeps the packed
+            # layout.
             from .structured import dia_shared_operator
 
             return dia_shared_operator(m, n, offs, stripes, dtype=dtype)
         return dia_operator(m, n, offs, stripes, dtype=dtype)
 
-    # JDIA: jitter-bounded diagonals — the general-sparsity streaming path.
-    # f64 packings route products through the XLA formulation (x64
-    # conformance); f32 takes the Pallas kernel on TPU. Accept when nearly
-    # all entries fit slots (the remainder falls back to scatter).
+    # JDIA: jitter-bounded diagonals. Accept when nearly all entries fit
+    # slots (the remainder falls back to segment-sum).
     from .jdia import jdia_operator
 
     try:
@@ -293,49 +278,6 @@ def auto_operator(m, n, vals, rows, cols, *, dtype=None,
             return cand
     except (ValueError, RuntimeError):
         pass
-
-    # WCOO: unstructured sparsity with a small n — the crossbar/MXU
-    # scatter-free Pallas kernels (round 4; ~25x the COO segment-sum on
-    # TPU). Tall-skinny least-squares and the per-device slices of 2-D
-    # column sharding land here; f64 keeps the exact COO path and the
-    # packer refuses pathological row distributions (falls through).
-    from .wcoo import WCOOPackError, wcoo_operator
-
-    # effective dtype follows jnp.asarray semantics (f64 input downcasts
-    # to f32 unless x64 is enabled) — same rule coo_operator applies
-    eff_dtype = (jnp.dtype(dtype) if dtype is not None
-                 else jnp.empty((), vals_np.dtype).dtype)
-
-    # RWCOO: unstructured f32 with WIDE n (4096 < n <= 262,144) — hot/cold
-    # column routing (round 5): the top-4096 columns by count stream
-    # through the compacted WCOO kernels, the sparse remainder through the
-    # WWCOO wide-n kernels (1.17 Gnnz/s pair at the n=65,536 Zipf(1.1)
-    # benchmark vs the ~0.1 Gnnz/s COO floor). Patterns without column
-    # concentration (near-uniform wide) exceed the cold work-list caps and
-    # fall through to the blocky/HYB routes below.
-    if 4096 < n <= 262_144 and m >= 16384 and eff_dtype == jnp.float32 \
-            and _block_fill_ratio(rows_np, cols_np, m, n) > 4.0:
-        from .rwcoo import rwcoo_operator
-        from .wcoo import WCOOPackError
-        from .wwcoo import WWCOOPackError
-
-        try:
-            return rwcoo_operator(m, n, vals_np, rows_np, cols_np,
-                                  dtype=dtype)
-        except (WCOOPackError, WWCOOPackError):
-            pass
-
-    if n <= 4096 and m >= 16384 and eff_dtype == jnp.float32 \
-            and _block_fill_ratio(rows_np, cols_np, m, n) > 4.0:
-        # The blocky gate keeps block-structured small-n patterns on
-        # BlockELL (streams its stored values at 90+ Gnnz/s; at fill <= 4x
-        # that beats the ~2.5 Gnnz/s WCOO pair on real nnz) instead of
-        # silently landing on WCOO whenever the pack succeeds.
-        try:
-            return wcoo_operator(m, n, vals_np, rows_np, cols_np,
-                                 dtype=dtype)
-        except WCOOPackError:
-            pass
 
     try:
         return block_ell_operator(
@@ -428,7 +370,7 @@ def lsqr_scipy(
     ``A`` may be anything :func:`lsqr_tpu.lsqr` accepts — a LinearOperator,
     a dense array, a ``(matvec, rmatvec)`` pair — or a scipy sparse matrix
     (converted via :func:`from_scipy`). Use this to port scipy code to the
-    TPU path one call-site at a time; for new code prefer
+    device path one call-site at a time; for new code prefer
     :func:`lsqr_tpu.lsqr`, whose result object carries more (trace, bnorm,
     dxmax) and composes with sharding/batching.
     """

@@ -1,10 +1,7 @@
-"""JDIA — jittered-diagonal storage: the general-sparsity TPU fast path.
+"""JDIA — jittered-diagonal storage for near-banded general sparsity.
 
-Why this format exists (measured, BENCHMARKS.md round 2): the only
-vectorized indexed access TPU offers is a per-sublane 128-wide
-``dynamic_gather``; XLA's general gather runs ELL SpMV at 0.12 Gnnz/s.
-Arbitrary column indexing is therefore off the table — but *bounded
-deviation from a diagonal* is exactly gatherable:
+The format stores entries that deviate by a bounded amount from a
+diagonal:
 
     A[i, i + d[tile, j] + e[i, j]]   with |e| <= 32
 
@@ -15,8 +12,9 @@ structured-general class — banded matrices with irregular within-band
 patterns, locally-clustered graphs, anything a bandwidth-reducing
 (RCM-style) reordering can localize — at streaming speed, and degrades
 gracefully (remainder fraction -> 1) on patterns with no locality at all,
-which the hardware cannot gather fast by any construction (no gather
-engine; see the roofline note in BENCHMARKS.md).
+where a general-sparse format takes over. The products are XLA gathers
+of the packed form. Whether JDIA beats plain COO or CSR on the GPU is
+unmeasured (ROADMAP S5).
 
 Reference anchor: this replaces the serial COO scatter loops
 (/root/reference/src/lsqr.f90:168-172, 188-192) for general inputs.
@@ -35,7 +33,7 @@ from .linop import LinearOperator
 
 __all__ = ["JDIAOperator", "jdia_operator", "jdia_pack"]
 
-JITTER = 32          # |e| budget (ops.pallas_spmv.JDIA_JITTER)
+JITTER = 32          # |e| budget
 DEFAULT_TM = 8192    # rows per tile (multiple of 1024)
 
 
@@ -207,7 +205,6 @@ class JDIAOperator(LinearOperator):
     twin: int = dataclasses.field(metadata=dict(static=True))
     tm: int = dataclasses.field(metadata=dict(static=True))
     nnz: int = dataclasses.field(metadata=dict(static=True))
-    use_pallas: object = dataclasses.field(default=None, metadata=dict(static=True))
 
     @property
     def dtype(self):
@@ -217,21 +214,6 @@ class JDIAOperator(LinearOperator):
     def fit_fraction(self) -> float:
         rem = int(self.rem_vals.shape[0])
         return 1.0 - rem / max(self.nnz, 1)
-
-    def _pallas_selected(self) -> bool:
-        # the Pallas kernel accumulates in f32 — f64 (x64 conformance)
-        # packings always take the XLA formulation so precision is preserved
-        if self.data.dtype != jnp.float32:
-            return False
-        if self.use_pallas is None:
-            return jax.default_backend() == "tpu" and self.m * self.n > 0
-        return bool(self.use_pallas)
-
-    @property
-    def prefers_bounded_loop(self) -> bool:
-        from ..config import bounded_loop_workaround
-
-        return bounded_loop_workaround() and self._pallas_selected()
 
     def _xpad(self, x, p_lo, win, m_out):
         m_pad = -(-m_out // self.tm) * self.tm
@@ -243,14 +225,7 @@ class JDIAOperator(LinearOperator):
 
     def _product(self, data, eoff, base, x, p_lo, win, m_out):
         xp = self._xpad(x, p_lo, win, m_out)
-        if self._pallas_selected():
-            from .pallas_spmv import jdia_matvec
-
-            y = jdia_matvec(data, eoff, base, xp, m=m_out, n=x.shape[0],
-                            win=win, tm=self.tm)
-        else:
-            y = _jdia_matvec_xla(data, eoff, base, xp, m_out, self.tm)
-        return y
+        return _jdia_matvec_xla(data, eoff, base, xp, m_out, self.tm)
 
     def matvec(self, x: jax.Array) -> jax.Array:
         y = self._product(self.data, self.eoff, self.base, x,
@@ -351,13 +326,12 @@ def jdia_pack(m, n, vals, rows, cols, *, ns_max=16, tm=DEFAULT_TM,
 
 
 def jdia_operator(m, n, vals, rows, cols, *, ns_max=16, tm=DEFAULT_TM,
-                  use_pallas=None, dtype=None) -> JDIAOperator:
+                  dtype=None) -> JDIAOperator:
     """Build a JDIAOperator from COO triplets (duplicates must be summed
     beforehand; ops.coo.coo_operator / native.coo_dedup handle that).
 
-    ``dtype`` defaults to float32 (the TPU Pallas storage dtype); float64
-    packings are supported for x64 conformance and route products through
-    the XLA formulation."""
+    ``dtype`` defaults to float32; float64 packings are supported for x64
+    mode."""
     if dtype is None:
         v = np.asarray(vals)
         dtype = v.dtype if v.dtype == np.float64 else np.float32
@@ -380,5 +354,4 @@ def jdia_operator(m, n, vals, rows, cols, *, ns_max=16, tm=DEFAULT_TM,
         twin=int(p["twin"]),
         tm=int(tm),
         nnz=len(np.asarray(vals)),
-        use_pallas=use_pallas,
     )

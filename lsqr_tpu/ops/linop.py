@@ -1,4 +1,4 @@
-"""Linear-operator layer — the TPU-native replacement for the reference's
+"""Linear-operator layer — the functional replacement for the reference's
 ``aprod`` callback protocol (/root/reference/src/lsqr.f90:67-82).
 
 The reference accesses A only through a user subroutine with two imperative
@@ -13,7 +13,7 @@ products:
 Implementations register as pytrees so operators flow through ``jax.jit`` /
 ``shard_map`` with their arrays as leaves and their shapes as static aux data.
 
-``axis_name_m`` is the TPU-distribution hook with no reference analogue
+``axis_name_m`` is the multi-device hook with no reference analogue
 (the reference is serial, SURVEY.md §2.2): when an operator's rows (and hence
 u-vectors) are sharded over a mesh axis inside ``shard_map``, the solver
 completes m-dimension reductions (norms of u) with collectives over that
@@ -71,8 +71,9 @@ class LinearOperator:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DenseOperator(LinearOperator):
-    """Dense A — maps directly onto the MXU via jnp.dot. The fastest path
-    whenever A fits in HBM densely; useful for small systems and as the
+    """Dense A — one matrix-vector product (jnp.dot, full float32
+    precision: no TF32). The fastest path whenever A fits in device
+    memory densely; useful for small systems and as the
     ground-truth oracle in tests."""
 
     a: jax.Array
@@ -90,7 +91,8 @@ class DenseOperator(LinearOperator):
         return self.a.dtype
 
     def matvec(self, x: jax.Array) -> jax.Array:
-        return jnp.dot(self.a, x, preferred_element_type=self.a.dtype)
+        return jnp.dot(self.a, x, preferred_element_type=self.a.dtype,
+                       precision=jax.lax.Precision.HIGHEST)
 
     def rmatvec(self, y: jax.Array) -> jax.Array:
         # adjoint product (A^H y): conjugate transpose for complex matrices,
@@ -100,7 +102,8 @@ class DenseOperator(LinearOperator):
             if jnp.issubdtype(self.a.dtype, jnp.complexfloating)
             else self.a.T
         )
-        return jnp.dot(at, y, preferred_element_type=self.a.dtype)
+        return jnp.dot(at, y, preferred_element_type=self.a.dtype,
+                       precision=jax.lax.Precision.HIGHEST)
 
     def todense(self) -> jax.Array:
         return self.a

@@ -1,5 +1,5 @@
 """Bandwidth-reducing reordering — the bridge from arbitrary general
-sparsity to the TPU streaming formats.
+sparsity to the streaming formats.
 
 The JDIA/DIA kernels need locality (bounded |col - row - d| jitter). Many
 "general" matrices have that locality hidden behind an arbitrary
@@ -10,11 +10,11 @@ istop, and iteration path as the original problem with x = P_c' z), so the
 solve runs entirely in permuted space — the permutation is applied ONCE to
 b on the way in and once to x on the way out, never inside the iteration
 (a per-iteration permutation would itself be a gather, the thing this
-module exists to avoid; measured: XLA gather runs at ~0.12 G elements/s).
+module exists to avoid).
 
 Reference anchor: the reference's COO aprod accepts any ordering
 (/root/reference/src/lsqr.f90:134-200); this module is how that generality
-meets TPU vector hardware.
+meets the streaming formats.
 """
 
 from __future__ import annotations
@@ -136,5 +136,5 @@ def plan_general(m, n, vals, rows, cols, *, reorder: Optional[bool] = None,
 
 def solve_general(m, n, vals, rows, cols, b, damp: float = 0.0, **opts):
     """One-shot general-sparsity solve: reorder if it helps, pack into the
-    best TPU format, solve, return x in the original ordering."""
+    best storage format, solve, return x in the original ordering."""
     return plan_general(m, n, vals, rows, cols).solve(b, damp, **opts)

@@ -1,4 +1,4 @@
-"""Distributed solves over TPU meshes (no reference analogue — the
+"""Distributed solves over device meshes (no reference analogue — the
 reference is serial Fortran; see SURVEY.md §2.2 and sharding.py for the
 design)."""
 
@@ -19,16 +19,6 @@ from .sharding import (
     lsqr_sharded_2d,
     lsqr_sharded_dia,
     lsqr_sharded_zdia,
-    lsqr_sharded_rwcoo,
-    lsqr_sharded_wcoo,
-    lsqr_sharded_wcoo_2d,
-    lsqr_sharded_wwcoo_2d,
-    lsmr_sharded_wcoo,
-    craig_sharded_wcoo,
-    cgls_sharded_wcoo,
-    lsmr_sharded_rwcoo,
-    craig_sharded_rwcoo,
-    cgls_sharded_rwcoo,
     make_mesh,
     make_mesh_2d,
     shard_coo,
@@ -42,16 +32,6 @@ __all__ = [
     "lsqr_sharded",
     "lsqr_sharded_dia",
     "lsqr_sharded_zdia",
-    "lsqr_sharded_rwcoo",
-    "lsqr_sharded_wcoo",
-    "lsqr_sharded_wcoo_2d",
-    "lsqr_sharded_wwcoo_2d",
-    "lsmr_sharded_wcoo",
-    "craig_sharded_wcoo",
-    "cgls_sharded_wcoo",
-    "lsmr_sharded_rwcoo",
-    "craig_sharded_rwcoo",
-    "cgls_sharded_rwcoo",
     "lsqr_sharded_2d",
     "lsmr_sharded",
     "craig_sharded",

@@ -1,12 +1,12 @@
 """Multi-host entry points.
 
-The reference is single-process (SURVEY.md §2.2); on a TPU pod slice the
-TPU-native pattern is single-program multiple-data: every host runs this
-same program, ``jax.distributed.initialize`` wires up the runtime, and the
-mesh in :mod:`lsqr_tpu.parallel.sharding` simply spans all devices of all
-hosts — XLA routes the two per-iteration collectives over ICI within a
-slice and DCN across slices, with no driver process and no NCCL/MPI
-equivalent needed.
+The reference is single-process (SURVEY.md §2.2); across several hosts the
+pattern is single-program multiple-data: every process runs this same
+program, ``jax.distributed.initialize`` wires up the runtime, and the mesh
+in :mod:`lsqr_tpu.parallel.sharding` simply spans all devices of all
+processes — XLA hands the two per-iteration collectives to NCCL (NVLink
+within a host, the network across hosts). Run one process per host (it
+drives all of the host's cards) or one per card.
 
 These helpers cannot be integration-tested in a single-host environment;
 they are thin, standard wiring kept separate from the (heavily tested)
@@ -33,9 +33,10 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize the JAX distributed runtime (idempotent). On TPU pods the
-    arguments are auto-detected from the environment; pass them explicitly
-    only for manual setups."""
+    """Initialize the JAX distributed runtime (idempotent). Without a
+    cluster manager that JAX recognises, pass ``coordinator_address``
+    (e.g. ``"localhost:<port>"`` on one host), ``num_processes`` and
+    ``process_id`` explicitly."""
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -49,8 +50,8 @@ def initialize_distributed(
 
 def global_mesh(axis_name: str = "rows") -> Mesh:
     """A 1-D mesh over ALL devices of ALL processes (u/b row-sharded across
-    the full slice; within-host devices are adjacent so the transpose-product
-    psum's ring segments ride ICI before crossing DCN)."""
+    all processes; within-host devices are adjacent, so the transpose-product
+    psum's ring segments stay on NVLink before crossing hosts)."""
     return Mesh(np.array(jax.devices()), (axis_name,))
 
 

@@ -1,7 +1,7 @@
-"""Distributed row-partitioned LSQR over a TPU device mesh.
+"""Distributed row-partitioned LSQR over a device mesh.
 
 The reference is serial Fortran with no parallelism of any kind (SURVEY.md
-§2.2); this module is the TPU-native scaling layer it lacks. The design
+§2.2); this module is the multi-device scaling layer it lacks. The design
 follows the structure of the algorithm:
 
 * A is partitioned by ROWS across a 1-D mesh axis; each device owns a
@@ -10,7 +10,8 @@ follows the structure of the algorithm:
 * n-vectors (x, v, w) are REPLICATED: the per-iteration scalar recurrence
   (Givens rotations, norm estimates — lsqr.f90:703-810) is O(1) work, so
   every device computes it redundantly with zero communication.
-* per iteration exactly TWO collectives are needed, both riding ICI:
+* per iteration exactly TWO collectives are needed (NCCL over NVLink on
+  a GPU host):
     - rmatvec: local SpMV-T partials -> psum over the row axis
       (the analogue of the reference's mode-2 full-x accumulation,
       lsqr.f90:188-192)
@@ -53,11 +54,6 @@ __all__ = [
     "ShardedCOO",
     "lsqr_sharded",
     "lsqr_sharded_dia",
-    "lsqr_sharded_wcoo",
-    "lsqr_sharded_wcoo_2d",
-    "lsmr_sharded_wcoo",
-    "craig_sharded_wcoo",
-    "cgls_sharded_wcoo",
     "lsqr_sharded_2d",
     "lsmr_sharded",
     "craig_sharded",
@@ -85,10 +81,11 @@ def make_mesh_2d(
 ) -> Mesh:
     """A 2-D (rows x cols) mesh over the first prod(shape) devices.
 
-    On real hardware lay 'rows' over the slower/outer interconnect
-    dimension: the per-iteration collectives are one psum over 'cols'
-    (matvec partials) and one over 'rows' (rmatvec partials), so both mesh
-    axes should ride ICI."""
+    The per-iteration collectives are one psum over 'cols' (matvec
+    partials) and one over 'rows' (rmatvec partials). The cards of one
+    host are joined all to all by NVLink, so the mesh shape follows the
+    matrix, not the wiring; across hosts lay 'rows' over the slower
+    interconnect."""
     r, c = shape
     devices = jax.devices()[: r * c]
     if len(devices) < r * c:
@@ -422,7 +419,7 @@ class _LocalDIAShard(LinearOperator):
     def fused_pair(self, *, y, win, c1, c2):
         """Both bidiagonalization products in one local pass + one psum:
             u_new = A_local (win*c1) - c2*y_local,   z = psum(A_local' u_new)
-        (the sharded analogue of ops/pallas_spmv.dia_pair: the adjoint
+        (the sharded analogue of the operator's fused_pair: the adjoint
         reuses the row-aligned stripes just streamed by the forward)."""
         u = self.matvec(win * c1) - c2 * y
         return u, jax.lax.psum(self._adjoint_local(u), self.axis)
@@ -991,7 +988,7 @@ class _Local2DShard(LinearOperator):
     lsqr.f90:188-192 is the all-ranks-touch-all-of-x pattern the column
     axis removes).
 
-    Per iteration exactly three collectives, all riding ICI:
+    Per iteration exactly three collectives:
       matvec:  local block product -> psum over 'cols'
       rmatvec: local transpose product -> psum over 'rows'
       norms:   scalar ssq psum over the vector's own axis (solver hooks
@@ -1532,1013 +1529,5 @@ def craig_sharded(
             b_pad,
             jnp.asarray(atol, _rdt(dtype)),
             jnp.asarray(btol, _rdt(dtype)),
-        )
-    )
-
-
-# ---------------------------------------------------------------------------
-# WCOO row partition — general (unstructured) sparsity, n <= 4096
-# ---------------------------------------------------------------------------
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class _LocalWCOOShard(LinearOperator):
-    """Per-device view of a row-partitioned WCOO matrix inside shard_map.
-
-    Each device owns a contiguous row block packed as its own WCOO layout
-    (ops/wcoo.py) with a SHARED static shape (force_emax/force_kb pin the
-    padded capacity to the global max, so shard_map sees one program).
-    x/v/w stay replicated (n <= 4096 — a few KB), the local products run
-    the scatter-free crossbar/MXU kernels, and the transpose product
-    reduces with one psum per iteration — the same communication
-    structure as the COO/DIA row partitions."""
-
-    packed: object     # WCOOPacked (local rows)
-    axis: str = dataclasses.field(metadata=dict(static=True))
-    global_m: int = dataclasses.field(metadata=dict(static=True))
-
-    @property
-    def m(self) -> int:
-        return self.packed.m
-
-    @property
-    def n(self) -> int:
-        return self.packed.n
-
-    @property
-    def dtype(self):
-        return jnp.dtype(jnp.float32)
-
-    @property
-    def axis_name_m(self):
-        return self.axis
-
-    @property
-    def prefers_pair(self) -> bool:
-        # one fused kernel pass + one psum beats two passes + one psum
-        return True
-
-    def _interp(self) -> bool:
-        return jax.default_backend() != "tpu"
-
-    def matvec(self, x: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_forward
-
-        y0 = jnp.zeros((self.packed.m,), jnp.float32)
-        return wcoo_forward(self.packed, x, 1.0, 0.0, y0,
-                            interpret=self._interp())
-
-    def rmatvec(self, y: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_adjoint
-
-        return jax.lax.psum(
-            wcoo_adjoint(self.packed, y, interpret=self._interp()),
-            self.axis,
-        )
-
-    def fused_pair(self, *, y, win, c1, c2):
-        from ..ops.pallas_wcoo import wcoo_pair
-
-        u, z = wcoo_pair(self.packed, y, win, c1, c2,
-                         interpret=self._interp())
-        return u, jax.lax.psum(z, self.axis)
-
-
-def _prep_wcoo_shards(A, b, mesh, axis_name):
-    """Host-side row partition + per-shard WCOO packing with a shared
-    static shape. ``A``: a WCOOOperator (its COO triplets are reused) or
-    a COOOperator with n <= 4096."""
-    from ..ops.wcoo import WCOOOperator, wcoo_pack
-
-    coo = A.coo if isinstance(A, WCOOOperator) else A
-    if not isinstance(coo, COOOperator):
-        raise TypeError("lsqr_sharded_wcoo expects a WCOOOperator or "
-                        "COOOperator")
-    ndev = mesh.shape[axis_name]
-    m, n = A.m, A.n
-    rpd = -(-m // ndev)
-    vals = np.asarray(coo.vals)
-    rows = np.asarray(coo.rows)
-    cols = np.asarray(coo.cols)
-    shard_of = rows // rpd
-    order = np.argsort(shard_of, kind="stable")
-    vals, rows, cols, shard_of = (vals[order], rows[order], cols[order],
-                                  shard_of[order])
-    starts = np.searchsorted(shard_of, np.arange(ndev))
-    ends = np.searchsorted(shard_of, np.arange(ndev), side="right")
-
-    def pack_all(force_emax=None, force_kb=None, force_ku=None):
-        packs = []
-        for s in range(ndev):
-            sl = slice(int(starts[s]), int(ends[s]))
-            if sl.start == sl.stop:   # empty shard: one explicit zero
-                pv = np.zeros(1, np.float32)
-                pr = np.zeros(1, np.int64)
-                pc = np.zeros(1, np.int64)
-            else:
-                pv, pr, pc = (vals[sl], rows[sl] - s * rpd, cols[sl])
-            packs.append(wcoo_pack(rpd, n, pv, pr, pc,
-                                   force_emax=force_emax,
-                                   force_kb=force_kb,
-                                   force_ku=force_ku))
-        return packs
-
-    packs = pack_all()
-    emax = max(p.eb for p in packs) * 1024
-    kb = max(p.kb for p in packs)
-    ku = max(p.ku for p in packs)
-    if any(p.eb * 1024 != emax or p.kb != kb or p.ku != ku
-           for p in packs):
-        packs = pack_all(force_emax=emax, force_kb=kb, force_ku=ku)
-
-    stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *packs)
-    m_pad_local = packs[0].m_pad
-    dtype = jnp.float32
-    b = jnp.asarray(b, dtype)
-    if b.shape != (m,):
-        raise ValueError(f"b must have shape ({m},), got {b.shape}")
-    b_pad = jnp.zeros((ndev * rpd,), dtype).at[:m].set(b)
-    return stacked, b_pad, rpd, m_pad_local, dtype
-
-
-def lsqr_sharded_wcoo(
-    A,
-    b,
-    damp: float = 0.0,
-    *,
-    mesh: Optional[Mesh] = None,
-    axis_name: str = "rows",
-    options: Optional[LSQROptions] = None,
-    **option_overrides,
-):
-    """Row-partitioned distributed LSQR for general (unstructured)
-    sparsity with n <= 4096, each shard running the WCOO scatter-free
-    Pallas kernels (ops/pallas_wcoo.py; ~25x the COO segment-sum shards
-    of :func:`lsqr_sharded` on TPU). Communication per iteration is the
-    COO path's: one psum for the transpose product, one for the u-norm.
-    """
-    opts = options or LSQROptions()
-    if option_overrides:
-        opts = opts.replace(**option_overrides)
-    mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
-    m, n = A.m, A.n
-    stacked, b_pad, rpd, m_pad_local, dtype = _prep_wcoo_shards(
-        A, b, mesh, axis_name)
-
-    itnlim = opts.resolve_itnlim(n)
-    pair = bool(opts.pair) if opts.pair is not None else True
-    solver_kw = dict(
-        itnlim=itnlim,
-        wantse=opts.wantse,
-        nconv=opts.nconv,
-        record_trace=opts.record_trace,
-        safe_norms=opts.safe_norms,
-        debug_log=opts.debug_log,
-        scalar_dtype=(str(jnp.dtype(opts.scalar_dtype))
-                      if opts.scalar_dtype is not None else None),
-        fused=pair,
-        pair=pair,
-    )
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(axis_name), P(axis_name), P(), P(), P(), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(packed_l, b_local, damp_, atol_, btol_, conlim_):
-        op = _LocalWCOOShard(
-            packed=jax.tree_util.tree_map(lambda a: a[0], packed_l),
-            axis=axis_name,
-            global_m=m,
-        )
-        return _lsqr_impl(
-            op, b_local.reshape(-1), damp_, atol_, btol_, conlim_,
-            **solver_kw
-        )
-
-    return jax.jit(run)(*_globalize(
-        mesh,
-        stacked,
-        b_pad,
-        jnp.asarray(damp, _rdt(dtype)),
-        jnp.asarray(opts.atol, _rdt(dtype)),
-        jnp.asarray(opts.btol, _rdt(dtype)),
-        jnp.asarray(opts.conlim, _rdt(dtype)),
-    ))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class _LocalRWCOOShard(LinearOperator):
-    """Per-device view of a row-partitioned RWCOO (wide-n hot/cold
-    routed) matrix inside shard_map — the sharded counterpart of
-    :class:`lsqr_tpu.ops.rwcoo.RWCOOOperator` (round 5: after ZDIA, the
-    last single-chip fast path without a sharded sibling).
-
-    The HOT column set is chosen GLOBALLY (every shard shares one
-    hotmap, so the compacted hot panels agree); each device packs its
-    contiguous row block as its own hot-WCOO + cold-WWCOO pair with
-    shared static shapes. x/v/w stay replicated (n <= 262,144: <= 1 MB),
-    the local product pipeline is the RWCOO one (hot fwd -> cold pair ->
-    hot adjoint), and the transpose product reduces with one psum per
-    iteration — identical communication to the COO/DIA/WCOO rows."""
-
-    hot: object        # WCOOPacked (local rows, compacted hot columns)
-    cold: object       # WWCOOPacked (local rows, absolute columns)
-    hotmap: jax.Array  # (K,) int32 absolute column of hot col j
-    axis: str = dataclasses.field(metadata=dict(static=True))
-    global_m: int = dataclasses.field(metadata=dict(static=True))
-    _n: int = dataclasses.field(default=0, metadata=dict(static=True))
-
-    @property
-    def m(self) -> int:
-        return self.hot.m
-
-    @property
-    def n(self) -> int:
-        return self._n
-
-    @property
-    def dtype(self):
-        return jnp.dtype(jnp.float32)
-
-    @property
-    def axis_name_m(self):
-        return self.axis
-
-    @property
-    def prefers_pair(self) -> bool:
-        return True
-
-    def _interp(self) -> bool:
-        return jax.default_backend() != "tpu"
-
-    def matvec(self, x: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_forward
-        from ..ops.pallas_wwcoo import wwcoo_forward
-
-        it = self._interp()
-        wh = jnp.take(x.astype(jnp.float32), self.hotmap)
-        y0 = jnp.zeros((self.m,), jnp.float32)
-        u = wcoo_forward(self.hot, wh, 1.0, 0.0, y0, interpret=it)
-        return wwcoo_forward(self.cold, x, 1.0, -1.0, u, interpret=it)
-
-    def _adjoint_local(self, y: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_adjoint
-        from ..ops.pallas_wwcoo import wwcoo_adjoint
-
-        it = self._interp()
-        zh = wcoo_adjoint(self.hot, y, interpret=it)
-        z = wwcoo_adjoint(self.cold, y, interpret=it)
-        return z.at[self.hotmap].add(zh[: self.hotmap.shape[0]])
-
-    def rmatvec(self, y: jax.Array) -> jax.Array:
-        return jax.lax.psum(self._adjoint_local(y), self.axis)
-
-    def fused_pair(self, *, y, win, c1, c2):
-        from ..ops.pallas_wcoo import wcoo_adjoint, wcoo_forward
-        from ..ops.pallas_wwcoo import wwcoo_pair
-
-        it = self._interp()
-        wh = jnp.take(win.astype(jnp.float32), self.hotmap)
-        u1 = wcoo_forward(self.hot, wh, c1, c2, y, interpret=it)
-        u, z = wwcoo_pair(self.cold, u1, win, c1, -1.0, interpret=it)
-        zh = wcoo_adjoint(self.hot, u, interpret=it)
-        z = z.at[self.hotmap].add(zh[: self.hotmap.shape[0]])
-        return u, jax.lax.psum(z, self.axis)
-
-
-def _prep_rwcoo_shards(A, b, mesh, axis_name):
-    """Host-side row partition + per-shard hot/cold packing with shared
-    static shapes. ``A``: an RWCOOOperator (its global hotmap and COO
-    triplets are reused) or a COOOperator with 4096 < n <= 262,144."""
-    from ..ops.rwcoo import RWCOOOperator
-    from ..ops.wcoo import wcoo_pack
-    from ..ops.wwcoo import wwcoo_pack
-
-    if isinstance(A, RWCOOOperator):
-        coo = A.coo
-        hotcols = np.asarray(A.hotmap, np.int64)
-    elif isinstance(A, COOOperator):
-        coo = A
-        counts = np.bincount(np.asarray(coo.cols), minlength=A.n)
-        k_hot = min(4096, int((counts > 0).sum()))
-        hotcols = np.sort(np.argpartition(counts, -k_hot)[-k_hot:])
-    else:
-        raise TypeError("lsqr_sharded_rwcoo expects an RWCOOOperator or "
-                        "COOOperator")
-    ndev = mesh.shape[axis_name]
-    m, n = A.m, A.n
-    k_hot = len(hotcols)
-    hpos = np.full(n, -1, np.int64)
-    hpos[hotcols] = np.arange(k_hot)
-    rpd = -(-m // ndev)
-    vals = np.asarray(coo.vals, np.float32)
-    rows = np.asarray(coo.rows, np.int64)
-    cols = np.asarray(coo.cols, np.int64)
-    shard_of = rows // rpd
-    order = np.argsort(shard_of, kind="stable")
-    vals, rows, cols, shard_of = (vals[order], rows[order], cols[order],
-                                  shard_of[order])
-    is_hot = hpos[cols] >= 0
-    starts = np.searchsorted(shard_of, np.arange(ndev))
-    ends = np.searchsorted(shard_of, np.arange(ndev), side="right")
-
-    def split(s):
-        sl = slice(int(starts[s]), int(ends[s]))
-        h = is_hot[sl]
-        pv, pr, pc = vals[sl], rows[sl] - s * rpd, cols[sl]
-        hot = (pv[h], pr[h], hpos[pc[h]])
-        cold = (pv[~h], pr[~h], pc[~h])
-        # empty streams pack one explicit zero entry (contributes 0)
-        z1 = (np.zeros(1, np.float32), np.zeros(1, np.int64),
-              np.zeros(1, np.int64))
-        return (hot if len(hot[0]) else z1), (cold if len(cold[0]) else z1)
-
-    def pack_all(hkw=None, ckw=None):
-        hots, colds = [], []
-        for s in range(ndev):
-            hot, cold = split(s)
-            hots.append(wcoo_pack(rpd, k_hot, *hot, **(hkw or {})))
-            colds.append(wwcoo_pack(rpd, n, *cold, **(ckw or {})))
-        return hots, colds
-
-    hots, colds = pack_all()
-    hkw = dict(force_emax=max(p.eb for p in hots) * 1024,
-               force_kb=max(p.kb for p in hots),
-               force_ku=max(p.ku for p in hots))
-    ckw = dict(force_emax=max(p.eb for p in colds) * 1024,
-               force_kb=max(p.kb for p in colds),
-               force_js=max(p.js for p in colds),
-               force_w=max(max(p.wc, p.wf, p.wu, p.wm, p.wz)
-                           for p in colds))
-    if any(p.eb * 1024 != hkw["force_emax"] or p.kb != hkw["force_kb"]
-           or p.ku != hkw["force_ku"] for p in hots) or any(
-           p.eb * 1024 != ckw["force_emax"] or p.kb != ckw["force_kb"]
-           or p.js != ckw["force_js"]
-           or len({p.wc, p.wf, p.wu, p.wm, p.wz, ckw["force_w"]}) > 1
-           for p in colds):
-        hots, colds = pack_all(hkw, ckw)
-
-    stacked_hot = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *hots)
-    stacked_cold = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *colds)
-    b = jnp.asarray(b, jnp.float32)
-    if b.shape != (m,):
-        raise ValueError(f"b must have shape ({m},), got {b.shape}")
-    b_pad = jnp.zeros((ndev * rpd,), jnp.float32).at[:m].set(b)
-    return (stacked_hot, stacked_cold,
-            jnp.asarray(hotcols, jnp.int32), b_pad, rpd)
-
-
-def lsqr_sharded_rwcoo(
-    A,
-    b,
-    damp: float = 0.0,
-    *,
-    mesh: Optional[Mesh] = None,
-    axis_name: str = "rows",
-    options: Optional[LSQROptions] = None,
-    **option_overrides,
-):
-    """Row-partitioned distributed LSQR for WIDE-n general sparsity
-    (4096 < n <= 262,144) with column concentration: each shard runs the
-    RWCOO hot/cold routed kernels (hot panel through compacted WCOO,
-    sparse tail through WWCOO — ops/rwcoo.py) on its row block.
-    Communication per iteration is the COO path's: one psum for the
-    transpose product, one for the u-norm."""
-    opts = options or LSQROptions()
-    if option_overrides:
-        opts = opts.replace(**option_overrides)
-    mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
-    m, n = A.m, A.n
-    stacked_hot, stacked_cold, hotmap, b_pad, rpd = _prep_rwcoo_shards(
-        A, b, mesh, axis_name)
-
-    itnlim = opts.resolve_itnlim(n)
-    pair = bool(opts.pair) if opts.pair is not None else True
-    solver_kw = dict(
-        itnlim=itnlim,
-        wantse=opts.wantse,
-        nconv=opts.nconv,
-        record_trace=opts.record_trace,
-        safe_norms=opts.safe_norms,
-        debug_log=opts.debug_log,
-        scalar_dtype=(str(jnp.dtype(opts.scalar_dtype))
-                      if opts.scalar_dtype is not None else None),
-        fused=pair,
-        pair=pair,
-    )
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(axis_name), P(axis_name), P(), P(axis_name),
-                  P(), P(), P(), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(hot_l, cold_l, hotmap_, b_local, damp_, atol_, btol_, conlim_):
-        op = _LocalRWCOOShard(
-            hot=jax.tree_util.tree_map(lambda a: a[0], hot_l),
-            cold=jax.tree_util.tree_map(lambda a: a[0], cold_l),
-            hotmap=hotmap_,
-            axis=axis_name,
-            global_m=m,
-            _n=n,
-        )
-        return _lsqr_impl(
-            op, b_local.reshape(-1), damp_, atol_, btol_, conlim_,
-            **solver_kw
-        )
-
-    return jax.jit(run)(*_globalize(
-        mesh,
-        stacked_hot,
-        stacked_cold,
-        hotmap,
-        b_pad,
-        jnp.asarray(damp, jnp.float32),
-        jnp.asarray(opts.atol, jnp.float32),
-        jnp.asarray(opts.btol, jnp.float32),
-        jnp.asarray(opts.conlim, jnp.float32),
-    ))
-
-
-def _wcoo_sibling_sharded(impl, n_scalars):
-    """Factory for the sibling solvers over the WCOO row partition (same
-    collective layout as _dia_sibling_sharded; local products run the
-    scatter-free WCOO kernels)."""
-
-    def solve(A, b, *scalars, mesh=None, axis_name="rows",
-              itnlim=None, safe_norms=True, default_itnlim=None, **impl_kw):
-        mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
-        stacked, b_pad, rpd, m_pad_local, dtype = _prep_wcoo_shards(
-            A, b, mesh, axis_name)
-        m, n = A.m, A.n
-        if itnlim is None:
-            itnlim = default_itnlim(m, n)
-        kw = dict(itnlim=int(itnlim), safe_norms=safe_norms, **impl_kw)
-
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis_name), P(axis_name)) + (P(),) * n_scalars,
-            out_specs=P(),
-            check_vma=False,
-        )
-        def run(packed_l, b_local, *sc):
-            op = _LocalWCOOShard(
-                packed=jax.tree_util.tree_map(lambda a: a[0], packed_l),
-                axis=axis_name,
-                global_m=m,
-            )
-            return impl(op, b_local.reshape(-1), *sc, **kw)
-
-        return jax.jit(run)(*_globalize(
-            mesh, stacked, b_pad,
-            *[jnp.asarray(s, dtype) for s in scalars]))
-
-    return solve
-
-
-def lsmr_sharded_wcoo(A, b, damp=0.0, *, mesh=None, axis_name="rows",
-                      atol=1e-6, btol=1e-6, conlim=0.0, itnlim=None,
-                      safe_norms=True, pair=True):
-    """Row-partitioned distributed LSMR on WCOO shards (see
-    :func:`lsqr_sharded_wcoo` for the partition/kernel layout)."""
-    from ..lsmr import _lsmr_impl
-
-    return _wcoo_sibling_sharded(_lsmr_impl, 4)(
-        A, b, damp, atol, btol, conlim, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: min(m, n), record_trace=False,
-        pair=bool(pair))
-
-
-def craig_sharded_wcoo(A, b, *, mesh=None, axis_name="rows",
-                       atol=1e-6, btol=1e-6, itnlim=None, safe_norms=True,
-                       pair=True):
-    """Row-partitioned distributed CRAIG on WCOO shards."""
-    from ..craig import _craig_impl
-
-    return _wcoo_sibling_sharded(_craig_impl, 2)(
-        A, b, atol, btol, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: min(m, n), pair=bool(pair))
-
-
-def cgls_sharded_wcoo(A, b, damp=0.0, *, mesh=None, axis_name="rows",
-                      atol=1e-6, btol=1e-6, itnlim=None, safe_norms=True,
-                      pair=True):
-    """Row-partitioned distributed CGLS on WCOO shards."""
-    from ..cgls import _cgls_impl
-
-    return _wcoo_sibling_sharded(_cgls_impl, 3)(
-        A, b, damp, atol, btol, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: 4 * n, pair=bool(pair))
-
-
-def _rwcoo_sibling_sharded(impl, n_scalars):
-    """Factory for the sibling solvers over the RWCOO (wide-n hot/cold)
-    row partition — same collective layout as _wcoo_sibling_sharded;
-    local products run the routed hot-WCOO + cold-WWCOO kernels."""
-
-    def solve(A, b, *scalars, mesh=None, axis_name="rows",
-              itnlim=None, safe_norms=True, default_itnlim=None, **impl_kw):
-        mesh = mesh if mesh is not None else make_mesh(axis_name=axis_name)
-        stacked_hot, stacked_cold, hotmap, b_pad, rpd = _prep_rwcoo_shards(
-            A, b, mesh, axis_name)
-        m, n = A.m, A.n
-        if itnlim is None:
-            itnlim = default_itnlim(m, n)
-        kw = dict(itnlim=int(itnlim), safe_norms=safe_norms, **impl_kw)
-
-        @partial(
-            jax.shard_map,
-            mesh=mesh,
-            in_specs=(P(axis_name), P(axis_name), P(), P(axis_name))
-                     + (P(),) * n_scalars,
-            out_specs=P(),
-            check_vma=False,
-        )
-        def run(hot_l, cold_l, hotmap_, b_local, *sc):
-            op = _LocalRWCOOShard(
-                hot=jax.tree_util.tree_map(lambda a: a[0], hot_l),
-                cold=jax.tree_util.tree_map(lambda a: a[0], cold_l),
-                hotmap=hotmap_,
-                axis=axis_name,
-                global_m=m,
-                _n=n,
-            )
-            return impl(op, b_local.reshape(-1), *sc, **kw)
-
-        return jax.jit(run)(*_globalize(
-            mesh, stacked_hot, stacked_cold, hotmap, b_pad,
-            *[jnp.asarray(s, jnp.float32) for s in scalars]))
-
-    return solve
-
-
-def lsmr_sharded_rwcoo(A, b, damp=0.0, *, mesh=None, axis_name="rows",
-                       atol=1e-6, btol=1e-6, conlim=0.0, itnlim=None,
-                       safe_norms=True, pair=True):
-    """Row-partitioned distributed LSMR on RWCOO (wide-n) shards (see
-    :func:`lsqr_sharded_rwcoo` for the partition/kernel layout)."""
-    from ..lsmr import _lsmr_impl
-
-    return _rwcoo_sibling_sharded(_lsmr_impl, 4)(
-        A, b, damp, atol, btol, conlim, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: min(m, n), record_trace=False,
-        pair=bool(pair))
-
-
-def craig_sharded_rwcoo(A, b, *, mesh=None, axis_name="rows",
-                        atol=1e-6, btol=1e-6, itnlim=None, safe_norms=True,
-                        pair=True):
-    """Row-partitioned distributed CRAIG on RWCOO (wide-n) shards."""
-    from ..craig import _craig_impl
-
-    return _rwcoo_sibling_sharded(_craig_impl, 2)(
-        A, b, atol, btol, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: min(m, n), pair=bool(pair))
-
-
-def cgls_sharded_rwcoo(A, b, damp=0.0, *, mesh=None, axis_name="rows",
-                       atol=1e-6, btol=1e-6, itnlim=None, safe_norms=True,
-                       pair=True):
-    """Row-partitioned distributed CGLS on RWCOO (wide-n) shards."""
-    from ..cgls import _cgls_impl
-
-    return _rwcoo_sibling_sharded(_cgls_impl, 3)(
-        A, b, damp, atol, btol, mesh=mesh, axis_name=axis_name,
-        itnlim=itnlim, safe_norms=safe_norms,
-        default_itnlim=lambda m, n: 4 * n, pair=bool(pair))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class _Local2DWCOOShard(LinearOperator):
-    """2-D block-partition analogue of :class:`_Local2DShard` with the
-    block products running the WCOO scatter-free kernels.
-
-    This is how unstructured patterns with n > 4096 scale: the column
-    axis slices n into per-device blocks that fit WCOO's VMEM-resident
-    x/z constraint (cpd <= 4096), and each block runs the crossbar/MXU
-    kernels instead of COO segment-sum. Same three collectives per
-    iteration as the COO 2-D partition. No fused pair here: the adjoint
-    needs the psum-completed u, so the products stay separate."""
-
-    packed: object
-    axis_m: str = dataclasses.field(metadata=dict(static=True))
-    axis_n: str = dataclasses.field(metadata=dict(static=True))
-    global_m: int = dataclasses.field(metadata=dict(static=True))
-    global_n: int = dataclasses.field(metadata=dict(static=True))
-
-    @property
-    def m(self) -> int:
-        return self.packed.m
-
-    @property
-    def n(self) -> int:
-        return self.packed.n
-
-    @property
-    def dtype(self):
-        return jnp.dtype(jnp.float32)
-
-    @property
-    def axis_name_m(self):
-        return self.axis_m
-
-    @property
-    def axis_name_n(self):
-        return self.axis_n
-
-    def _interp(self) -> bool:
-        return jax.default_backend() != "tpu"
-
-    def matvec(self, x: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_forward
-
-        y0 = jnp.zeros((self.packed.m,), jnp.float32)
-        part = wcoo_forward(self.packed, x, 1.0, 0.0, y0,
-                            interpret=self._interp())
-        return jax.lax.psum(part, self.axis_n)
-
-    def rmatvec(self, y: jax.Array) -> jax.Array:
-        from ..ops.pallas_wcoo import wcoo_adjoint
-
-        return jax.lax.psum(
-            wcoo_adjoint(self.packed, y, interpret=self._interp()),
-            self.axis_m,
-        )
-
-
-def _shard_wcoo_2d(A, ndev_r: int, ndev_c: int):
-    """Bucket entries into a (R, C) block grid and WCOO-pack every block
-    with one shared static shape."""
-    from ..ops.wcoo import WCOOOperator, wcoo_pack
-
-    coo = A.coo if isinstance(A, WCOOOperator) else A
-    if not isinstance(coo, COOOperator):
-        raise TypeError("the 2-D WCOO solver expects a WCOOOperator or "
-                        "COOOperator")
-    rows = np.asarray(coo.rows)
-    cols = np.asarray(coo.cols)
-    vals = np.asarray(coo.vals, np.float32)
-    m, n = A.m, A.n
-    m_pad = -(-m // ndev_r) * ndev_r
-    n_pad = -(-n // ndev_c) * ndev_c
-    rpd = m_pad // ndev_r
-    cpd = n_pad // ndev_c
-    if cpd > 4096:
-        raise ValueError(
-            f"per-device column block is {cpd} > 4096 — use more column "
-            f"shards (ndev_c >= {-(-n // 4096)}) for the WCOO 2-D solver"
-        )
-    dev_r = rows // rpd
-    dev_c = cols // cpd
-    bucket = dev_r * ndev_c + dev_c
-    order = np.argsort(bucket, kind="stable")
-    rows, cols, vals, bucket = (rows[order], cols[order], vals[order],
-                                bucket[order])
-    starts = np.searchsorted(bucket, np.arange(ndev_r * ndev_c))
-    ends = np.searchsorted(bucket, np.arange(ndev_r * ndev_c),
-                           side="right")
-
-    def pack_all(force_emax=None, force_kb=None, force_ku=None):
-        packs = []
-        for bidx in range(ndev_r * ndev_c):
-            r, c = divmod(bidx, ndev_c)
-            sl = slice(int(starts[bidx]), int(ends[bidx]))
-            if sl.start == sl.stop:
-                pv = np.zeros(1, np.float32)
-                pr = np.zeros(1, np.int64)
-                pc = np.zeros(1, np.int64)
-            else:
-                pv = vals[sl]
-                pr = rows[sl] - r * rpd
-                pc = cols[sl] - c * cpd
-            packs.append(wcoo_pack(rpd, cpd, pv, pr, pc,
-                                   force_emax=force_emax,
-                                   force_kb=force_kb,
-                                   force_ku=force_ku))
-        return packs
-
-    packs = pack_all()
-    emax = max(p.eb for p in packs) * 1024
-    kb = max(p.kb for p in packs)
-    ku = max(p.ku for p in packs)
-    if any(p.eb * 1024 != emax or p.kb != kb or p.ku != ku
-           for p in packs):
-        packs = pack_all(force_emax=emax, force_kb=kb, force_ku=ku)
-    stacked = jax.tree_util.tree_map(
-        lambda *xs: jnp.stack(xs).reshape((ndev_r, ndev_c)
-                                          + np.shape(xs[0])),
-        *packs)
-    return stacked, m_pad, n_pad, rpd, cpd
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class _Local2DWWCOOShard(LinearOperator):
-    """2-D block-partition analogue of :class:`_Local2DWCOOShard` for
-    WIDE per-device column blocks (4096 < cpd <= 262,144): each block is
-    a WWCOO packing over its own column slice. 2-D blocks are sparse by
-    construction, which is exactly WWCOO's regime: the per-chunk column
-    compaction maps each chunk's few distinct columns onto a dense range
-    (so the window work lists stay short even at cpd = 262,144) and the
-    item-based u-gather has no row-density floor. No hot/cold routing is
-    needed — that exists for DENSE chunks whose distinct-column count
-    stays large after compaction, which 2-D slicing removes. No fused
-    pair: the adjoint needs the psum-completed u."""
-
-    packed: object     # WWCOOPacked (block rows, block-local columns)
-    axis_m: str = dataclasses.field(metadata=dict(static=True))
-    axis_n: str = dataclasses.field(metadata=dict(static=True))
-    global_m: int = dataclasses.field(metadata=dict(static=True))
-    global_n: int = dataclasses.field(metadata=dict(static=True))
-
-    @property
-    def m(self) -> int:
-        return self.packed.m
-
-    @property
-    def n(self) -> int:
-        return self.packed.n
-
-    @property
-    def dtype(self):
-        return jnp.dtype(jnp.float32)
-
-    @property
-    def axis_name_m(self):
-        return self.axis_m
-
-    @property
-    def axis_name_n(self):
-        return self.axis_n
-
-    def _interp(self) -> bool:
-        return jax.default_backend() != "tpu"
-
-    def matvec(self, x: jax.Array) -> jax.Array:
-        from ..ops.pallas_wwcoo import wwcoo_forward
-
-        y0 = jnp.zeros((self.m,), jnp.float32)
-        part = wwcoo_forward(self.packed, x, 1.0, 0.0, y0,
-                             interpret=self._interp())
-        return jax.lax.psum(part, self.axis_n)
-
-    def rmatvec(self, y: jax.Array) -> jax.Array:
-        from ..ops.pallas_wwcoo import wwcoo_adjoint
-
-        return jax.lax.psum(
-            wwcoo_adjoint(self.packed, y, interpret=self._interp()),
-            self.axis_m,
-        )
-
-
-def _shard_wwcoo_2d(A, ndev_r: int, ndev_c: int):
-    """Bucket entries into a (R, C) block grid and WWCOO-pack every
-    block with shared static shapes."""
-    from ..ops.rwcoo import RWCOOOperator
-    from ..ops.wwcoo import WWCOOOperator, wwcoo_pack
-
-    coo = A.coo if isinstance(A, (RWCOOOperator, WWCOOOperator)) else A
-    if not isinstance(coo, COOOperator):
-        raise TypeError("the 2-D WWCOO solver expects an RWCOOOperator, "
-                        "WWCOOOperator or COOOperator")
-    rows = np.asarray(coo.rows)
-    cols = np.asarray(coo.cols)
-    vals = np.asarray(coo.vals, np.float32)
-    m, n = A.m, A.n
-    m_pad = -(-m // ndev_r) * ndev_r
-    n_pad = -(-n // ndev_c) * ndev_c
-    rpd = m_pad // ndev_r
-    cpd = n_pad // ndev_c
-    if cpd > 262_144:
-        raise ValueError(
-            f"per-device column block is {cpd} > 262,144 — use more "
-            f"column shards (ndev_c >= {-(-n // 262_144)})"
-        )
-    dev_r = rows // rpd
-    dev_c = cols // cpd
-    bucket = dev_r * ndev_c + dev_c
-    order = np.argsort(bucket, kind="stable")
-    rows, cols, vals, bucket = (rows[order], cols[order], vals[order],
-                                bucket[order])
-    nb = ndev_r * ndev_c
-    starts = np.searchsorted(bucket, np.arange(nb))
-    ends = np.searchsorted(bucket, np.arange(nb), side="right")
-
-    def block(bidx):
-        r, c = divmod(bidx, ndev_c)
-        sl = slice(int(starts[bidx]), int(ends[bidx]))
-        if sl.start == sl.stop:
-            return (np.zeros(1, np.float32), np.zeros(1, np.int64),
-                    np.zeros(1, np.int64))
-        return (vals[sl], rows[sl] - r * rpd, cols[sl] - c * cpd)
-
-    blocks = [block(b) for b in range(nb)]
-
-    def pack_all(kw=None):
-        return [wwcoo_pack(rpd, cpd, *blk, **(kw or {}))
-                for blk in blocks]
-
-    packs = pack_all()
-    kw = dict(force_emax=max(p.eb for p in packs) * 1024,
-              force_kb=max(p.kb for p in packs),
-              force_js=max(p.js for p in packs),
-              force_w=max(max(p.wc, p.wf, p.wu, p.wm, p.wz)
-                          for p in packs))
-    packs = pack_all(kw)
-
-    st = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *packs)
-    grid = jax.tree_util.tree_map(
-        lambda a: a.reshape((ndev_r, ndev_c) + a.shape[1:]), st)
-    return grid, m_pad, n_pad, rpd, cpd
-
-
-def lsqr_sharded_wwcoo_2d(
-    A,
-    b,
-    damp: float = 0.0,
-    *,
-    mesh: Optional[Mesh] = None,
-    mesh_shape: Optional[tuple] = None,
-    axis_names: tuple = ("rows", "cols"),
-    options: Optional[LSQROptions] = None,
-    **option_overrides,
-) -> LSQRResult:
-    """LSQR over a 2-D (rows x cols) block partition with WWCOO block
-    kernels — the scaling path for unstructured patterns whose n exceeds
-    even the single-device wide range (n up to 262,144 * ndev_c). The
-    2-D blocks are sparse by construction, which is WWCOO's regime (see
-    :class:`_Local2DWWCOOShard`); dense-chunk blocks are refused by the
-    packer (use :func:`lsqr_sharded_wcoo_2d` with more column shards so
-    cpd <= 4096 instead). Vector/collective layout identical to
-    :func:`lsqr_sharded_2d`."""
-    opts = options or LSQROptions()
-    if option_overrides:
-        opts = opts.replace(**option_overrides)
-    if mesh is None:
-        if mesh_shape is None:
-            raise ValueError("pass mesh= or mesh_shape=(R, C)")
-        mesh = make_mesh_2d(mesh_shape, axis_names)
-    ax_r, ax_c = axis_names
-    ndev_r = mesh.shape[ax_r]
-    ndev_c = mesh.shape[ax_c]
-    m, n = A.m, A.n
-
-    grid, m_pad, n_pad, rpd, cpd = _shard_wwcoo_2d(A, ndev_r, ndev_c)
-    dtype = jnp.float32
-    b = jnp.asarray(b, dtype)
-    if b.shape != (m,):
-        raise ValueError(f"b must have shape ({m},), got {b.shape}")
-    b_pad = jnp.zeros((m_pad,), dtype).at[:m].set(b)
-
-    itnlim = opts.resolve_itnlim(n)
-    solver_kw = dict(
-        itnlim=itnlim,
-        wantse=opts.wantse,
-        nconv=opts.nconv,
-        record_trace=opts.record_trace,
-        safe_norms=opts.safe_norms,
-        debug_log=opts.debug_log,
-        scalar_dtype=(str(jnp.dtype(opts.scalar_dtype))
-                      if opts.scalar_dtype is not None else None),
-    )
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(ax_r, ax_c), P(ax_r), P(), P(), P(), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(packed_l, b_local, damp_, atol_, btol_, conlim_):
-        op = _Local2DWWCOOShard(
-            packed=jax.tree_util.tree_map(lambda a: a[0, 0], packed_l),
-            axis_m=ax_r,
-            axis_n=ax_c,
-            global_m=m,
-            global_n=n,
-        )
-        res = _lsqr_impl(
-            op, b_local.reshape(-1), damp_, atol_, btol_, conlim_,
-            **solver_kw
-        )
-        x_full = jax.lax.all_gather(res.x, ax_c, tiled=True)[:n]
-        se_full = (
-            jax.lax.all_gather(res.se, ax_c, tiled=True)[:n]
-            if res.se is not None
-            else None
-        )
-        return res._replace(x=x_full, se=se_full)
-
-    return jax.jit(run)(
-        *_globalize(
-            mesh,
-            grid,
-            b_pad,
-            jnp.asarray(damp, _rdt(dtype)),
-            jnp.asarray(opts.atol, _rdt(dtype)),
-            jnp.asarray(opts.btol, _rdt(dtype)),
-            jnp.asarray(opts.conlim, _rdt(dtype)),
-        )
-    )
-
-
-def lsqr_sharded_wcoo_2d(
-    A,
-    b,
-    damp: float = 0.0,
-    *,
-    mesh: Optional[Mesh] = None,
-    mesh_shape: Optional[tuple] = None,
-    axis_names: tuple = ("rows", "cols"),
-    options: Optional[LSQROptions] = None,
-    **option_overrides,
-) -> LSQRResult:
-    """LSQR over a 2-D (rows x cols) block partition with WCOO block
-    kernels — the scaling path for UNSTRUCTURED patterns whose n exceeds
-    WCOO's single-device 4096-column limit: pick ndev_c >= n/4096 and
-    every device's block lands back in kernel range (~25x the COO block
-    products on TPU). Vector/collective layout identical to
-    :func:`lsqr_sharded_2d`."""
-    opts = options or LSQROptions()
-    if option_overrides:
-        opts = opts.replace(**option_overrides)
-    if mesh is None:
-        if mesh_shape is None:
-            raise ValueError("pass mesh= or mesh_shape=(R, C)")
-        mesh = make_mesh_2d(mesh_shape, axis_names)
-    ax_r, ax_c = axis_names
-    ndev_r = mesh.shape[ax_r]
-    ndev_c = mesh.shape[ax_c]
-    m, n = A.m, A.n
-
-    stacked, m_pad, n_pad, rpd, cpd = _shard_wcoo_2d(A, ndev_r, ndev_c)
-    dtype = jnp.float32
-    b = jnp.asarray(b, dtype)
-    if b.shape != (m,):
-        raise ValueError(f"b must have shape ({m},), got {b.shape}")
-    b_pad = jnp.zeros((m_pad,), dtype).at[:m].set(b)
-
-    itnlim = opts.resolve_itnlim(n)
-    solver_kw = dict(
-        itnlim=itnlim,
-        wantse=opts.wantse,
-        nconv=opts.nconv,
-        record_trace=opts.record_trace,
-        safe_norms=opts.safe_norms,
-        debug_log=opts.debug_log,
-        scalar_dtype=(str(jnp.dtype(opts.scalar_dtype))
-                      if opts.scalar_dtype is not None else None),
-    )
-
-    @partial(
-        jax.shard_map,
-        mesh=mesh,
-        in_specs=(P(ax_r, ax_c), P(ax_r), P(), P(), P(), P()),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(packed_l, b_local, damp_, atol_, btol_, conlim_):
-        op = _Local2DWCOOShard(
-            packed=jax.tree_util.tree_map(lambda a: a[0, 0], packed_l),
-            axis_m=ax_r,
-            axis_n=ax_c,
-            global_m=m,
-            global_n=n,
-        )
-        res = _lsqr_impl(
-            op, b_local.reshape(-1), damp_, atol_, btol_, conlim_,
-            **solver_kw
-        )
-        x_full = jax.lax.all_gather(res.x, ax_c, tiled=True)[:n]
-        se_full = (
-            jax.lax.all_gather(res.se, ax_c, tiled=True)[:n]
-            if res.se is not None
-            else None
-        )
-        return res._replace(x=x_full, se=se_full)
-
-    return jax.jit(run)(
-        *_globalize(
-            mesh,
-            stacked,
-            b_pad,
-            jnp.asarray(damp, _rdt(dtype)),
-            jnp.asarray(opts.atol, _rdt(dtype)),
-            jnp.asarray(opts.btol, _rdt(dtype)),
-            jnp.asarray(opts.conlim, _rdt(dtype)),
         )
     )

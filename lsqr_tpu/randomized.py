@@ -3,8 +3,8 @@
 The reference documents right preconditioning as the user's problem
 ("solve A M^-1 z = b for some convenient M", lsqr.f90:322-328) but offers
 no way to build a good M: in serial Fortran, constructing one costs as
-much as the solve it accelerates. On TPU the construction is cheap where
-it matters — a Gaussian sketch is matmul/batched-product work on the MXU,
+much as the solve it accelerates. On the device the construction is cheap where
+it matters — a Gaussian sketch is matmul/batched-product work,
 and the SVD of the small sketch runs on the host.
 
 LSRN (Meng, Saunders & Mahoney 2014, SIAM J. Sci. Comput. 36(2)):
@@ -26,7 +26,7 @@ sketch from the right (``A G'``), precondition from the LEFT with
 
 The sketch itself never materializes G A against a sparse operator as a
 dense product chain: each sketch row is one ``rmatvec`` (``(G A)_i =
-(A' g_i)'``), evaluated as chunked vmapped batches — MXU-dense for
+(A' g_i)'``), evaluated as chunked vmapped batches — one matmul for
 DenseOperator, O(nnz) streaming per row otherwise.
 """
 
@@ -41,6 +41,9 @@ import numpy as np
 from .ops.compose import scale_operator, vstack_operators
 from .ops.linop import DenseOperator, LinearOperator, as_operator
 from .ops.precondition import ComposedOperator
+
+#: float32 products feeding a solver run at full precision, not TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["LSRNResult", "lsrn", "lsrn_preconditioner", "sketch_left",
            "sketch_right", "svd_truncated_preconditioner"]
@@ -61,12 +64,12 @@ def sketch_left(A: LinearOperator, s: int, *, seed: int = 0,
                 chunk: int = 64) -> jax.Array:
     """``G A`` for an (s, m) standard Gaussian G, as an (s, n) dense array.
 
-    DenseOperator: one (s, m) x (m, n) matmul (MXU). Anything else: each
+    DenseOperator: one (s, m) x (m, n) matmul. Anything else: each
     row is ``A.rmatvec(g_i)``, evaluated in vmapped chunks."""
     key = jax.random.PRNGKey(seed)
     if isinstance(A, DenseOperator):
         G = jax.random.normal(key, (s, A.m), A.dtype)
-        return G @ A.a
+        return jnp.matmul(G, A.a, precision=_HIGHEST)
     G = jax.random.normal(key, (s, A.m), A.dtype)
     if jnp.issubdtype(G.dtype, jnp.complexfloating):
         # rmatvec is the ADJOINT product: row i of G A = conj(A^H conj(g_i))
@@ -81,7 +84,7 @@ def sketch_right(A: LinearOperator, s: int, *, seed: int = 0,
     key = jax.random.PRNGKey(seed)
     if isinstance(A, DenseOperator):
         G = jax.random.normal(key, (s, A.n), A.dtype)
-        return (A.a @ G.T)
+        return jnp.matmul(A.a, G.T, precision=_HIGHEST)
     G = jax.random.normal(key, (s, A.n), A.dtype)
     return _chunked_rows(A.matvec, G, chunk).T
 
@@ -198,7 +201,7 @@ def lsrn(
                                           rcond=rcond, chunk=chunk)
         B = ComposedOperator(outer=A, inner=DenseOperator(N))
         res = _solve(B, b, **opts)
-        x = N @ res.x
+        x = jnp.matmul(N, res.x, precision=_HIGHEST)
         return LSRNResult(x=x, result=res, N=N, P=None, rank=r,
                           cond_bound=bound)
 
@@ -212,7 +215,7 @@ def lsrn(
     # P = diag(1/sig) U^H — conj-transpose for complex (identity for real)
     P = jnp.asarray(U[:, :r].conj().T / sig[:r, None], A.dtype)   # (r, m)
     B = ComposedOperator(outer=DenseOperator(P), inner=A)  # (r, n)
-    res = _solve(B, P @ b, **opts)
+    res = _solve(B, jnp.matmul(P, b, precision=_HIGHEST), **opts)
     root = np.sqrt(r / s)
     return LSRNResult(x=res.x, result=res, N=None, P=P, rank=r,
                       cond_bound=float((1 + root) / (1 - root)))

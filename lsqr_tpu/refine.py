@@ -4,8 +4,9 @@ The reference runs in compile-time-selected precision and notes that
 accuracy/iterations are precision-bound (lsqr.f90:429-430); its
 warm-start recipe — solve ``A dx = b - A x0``, ``x = x0 + dx``
 (lsqr.f90:303-320) — is one refinement step with the residual computed in
-WORKING precision, so it cannot beat that precision. On TPU the natural
-working precision is float32 (f64 is emulated and slow); this module
+WORKING precision, so it cannot beat that precision. On the GPU the fast
+working precision is float32 (f64 runs natively at about half the
+streaming rate); this module
 turns the correction trick into a precision ladder:
 
 **Augmented-system refinement** (Bjorck 1967 for least squares). Keep

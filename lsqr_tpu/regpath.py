@@ -2,8 +2,8 @@
 
 The reference solves one damp value per LSQR call (damped problem statement,
 /root/reference/src/lsqr.f90:264-273) and leaves choosing ``damp`` entirely
-to the user. These helpers answer the two standard questions on TPU-native
-terms — the whole damp grid costs ONE bidiagonalization sweep (2 operator
+to the user. These helpers answer the two standard questions on the
+device's terms — the whole damp grid costs ONE bidiagonalization sweep (2 operator
 products per iteration TOTAL, shared by every grid point):
 
 * :func:`reg_sweep` — solve a damp grid, return the path quantities

@@ -1,7 +1,7 @@
 """LSQR core — Golub–Kahan bidiagonalization with Givens-rotation recurrences,
 as a single jit-compiled ``lax.while_loop``.
 
-This is the TPU-native re-design of the reference's main routine
+This is the functional re-design of the reference's main routine
 (/root/reference/src/lsqr.f90:432-882). The mathematical recurrences, the
 stopping taxonomy (istop 0-5, lsqr.f90:520-538), the machine-precision
 ``1 + t <= 1`` guards (lsqr.f90:798-804), the damp-elimination rotation
@@ -11,8 +11,8 @@ expressed functionally:
 
 * the whole iteration (bidiag step -> rotations -> x/w update -> norm
   estimates -> stopping tests) is ONE while_loop body, traced once and
-  compiled by XLA; every vector op fuses on the VPU, the two operator
-  products per iteration are the only HBM-heavy steps;
+  compiled by XLA; the vector ops fuse, and the two operator products per
+  iteration are the memory-heavy steps;
 * the reference's in-place aliasing updates (``u *= -alpha; u += A v``)
   become pure expressions with identical operation ordering, so rounding
   matches the Fortran build closely enough for istop/iteration-count parity
@@ -25,7 +25,7 @@ expressed functionally:
 
 Distribution hooks: norms over the m-dimension consult the operator's
 ``axis_name_m`` so that the same loop body runs unchanged inside
-``shard_map`` with A row-partitioned across a TPU mesh (SURVEY.md §2.2);
+``shard_map`` with A row-partitioned across a device mesh (SURVEY.md §2.2);
 the transpose-product reduction lives inside the operator's ``rmatvec``.
 """
 
@@ -150,8 +150,8 @@ def _build(
 
     ``scalar_dtype``: optional wider dtype for the SCALAR recurrence (the
     Givens rotations and all running norm estimates, lsqr.f90:703-810) while
-    vectors stay in ``b.dtype`` — the TPU-native mixed-precision mode: f32
-    vectors at full VPU/HBM speed, f64 scalars (O(1) work per iteration)
+    vectors stay in ``b.dtype`` — the mixed-precision mode: f32
+    vectors at full streaming speed, f64 scalars (O(1) work per iteration)
     protecting the hundreds-of-iterations accumulations that limit f32
     convergence (reference precision note, lsqr.f90:429-430)."""
     m, n = A.shape
@@ -295,13 +295,13 @@ def _build(
         # --- bidiagonalization step (lsqr.f90:681-699) -----------------
         if fused:
             # unnormalized-carry form: u_true = c.u/c.beta, v_true =
-            # c.v/c.alpha; both half-steps are single fused streaming
-            # kernels (product + axpy + norm, ops/pallas_spmv.py).
+            # c.v/c.alpha; each half-step is the operator's fused
+            # product + axpy + norm (fused_halfstep).
             inv_alpha_prev = jnp.where(c.alpha > zero, one / jnp.where(c.alpha > zero, c.alpha, one), zero)
             inv_beta_prev = jnp.where(c.beta > zero, one / jnp.where(c.beta > zero, c.beta, one), zero)
             if pair:
-                # ONE stripe pass for both products (ops/pallas_spmv.
-                # dia_pair): u_new = A v_true - alpha u_true AND the raw
+                # ONE stripe pass for both products (the operator's
+                # fused_pair): u_new = A v_true - alpha u_true AND the raw
                 # adjoint z = A'u_new; the 1/beta normalization commutes
                 # with A' and is applied in the XLA epilogue below.
                 u, z_adj = A.fused_pair(
@@ -586,8 +586,7 @@ def _masked_body(cond_fun, body_fun):
 )
 def _segment_fori(A, b, damp, atol, btol, conlim, carry, *, seg_len, **static_opts):
     """Run exactly ``seg_len`` masked iterations (STATIC trip count — no
-    lax.while_loop). This is the loop form that composes with Pallas
-    kernels on backends where pallas-inside-while_loop misbehaves."""
+    lax.while_loop), so the host can stop and resume between segments."""
     carry0, cond_fun, body_fun, _ = _build(A, b, damp, atol, btol, conlim, **static_opts)
     carry = carry if carry is not None else carry0
     return jax.lax.fori_loop(
@@ -689,38 +688,6 @@ def lsqr(
             f"A); got shape {b.shape}"
         )
 
-    mk = opts.megakernel
-    if mk is not False and _jit and not isinstance(b, jax.core.Tracer):
-        from .ops.megakernel import lsqr_megakernel, megakernel_supported
-
-        supported = (
-            dtype == jnp.float32
-            and not opts.debug_log
-            and opts.scalar_dtype is None
-            and megakernel_supported(
-                A, wantse=opts.wantse, record_trace=opts.record_trace
-            )
-        )
-        if mk is None:
-            # auto-routing is OFF: on the measured backend the regular
-            # bounded-loop path beats the megakernel at every supported
-            # size (LSQROptions.megakernel docs / BENCHMARKS.md); pass
-            # megakernel=True to force it.
-            mk = False
-        if mk:
-            if not supported:
-                raise ValueError(
-                    "megakernel=True requires an f32 DIA operator whose "
-                    "vectors fit VMEM, without wantse/record_trace "
-                    "(see ops.megakernel.megakernel_supported)"
-                )
-            return lsqr_megakernel(
-                A, b, damp,
-                atol=opts.atol, btol=opts.btol, conlim=opts.conlim,
-                itnlim=opts.itnlim, nconv=opts.nconv,
-                interpret=jax.default_backend() != "tpu", x0=x0,
-            )
-
     if x0 is not None:
         x0 = jnp.asarray(x0, dtype)
         if isinstance(damp, (int, float)) and damp != 0.0:
@@ -751,9 +718,7 @@ def lsqr(
         return res._replace(x=x0 + res.x, xnorm=nrm2(x0 + res.x, safe=opts.safe_norms))
 
     itnlim = opts.resolve_itnlim(A.n)
-    fused = opts.fused
-    if fused is None:
-        fused = bool(getattr(A, "prefers_fused", False))
+    fused = bool(opts.fused)
     if fused and not hasattr(A, "fused_halfstep"):
         raise ValueError(
             f"{type(A).__name__} does not implement fused_halfstep; "
@@ -800,10 +765,6 @@ def lsqr(
         jnp.asarray(opts.conlim, rdt),
     )
     loop = opts.loop
-    if loop is None:
-        # some operators (Pallas-kernel products on certain backends) need a
-        # static-trip-count loop; they advertise it
-        loop = "bounded" if getattr(A, "prefers_bounded_loop", False) else "while"
     if loop == "bounded":
         return _lsqr_bounded(*args, seg_len=opts.loop_segment, **kwargs)
     fn = _lsqr_jit if _jit else _lsqr_impl

@@ -2,7 +2,7 @@
 
 The reference has NO checkpointing (SURVEY.md §5) — its docstring only
 documents the x0 warm-start recipe (lsqr.f90:303-320), which :func:`lsqr`
-already exposes. For long pod runs the TPU build adds real carry-state
+already exposes. For long runs this module adds real carry-state
 checkpointing: the entire solver state is the while_loop carry (~10 scalars
 plus the u, v, w, x, se vectors), so a solve can be cut into fixed-size
 segments with the state saved to disk between them and resumed later — on a

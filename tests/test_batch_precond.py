@@ -123,15 +123,14 @@ def test_right_preconditioning_recovers_solution(rng):
 
 
 def test_batch_bounded_matches_while_loop(rng):
-    """The batched bounded runner (vmapped masked-fori segments — the loop
-    form Pallas-product operators require, VERDICT.md round-1 item 7)
-    matches the vmapped while_loop solve and per-problem sequential solves."""
+    """The batched bounded runner (vmapped masked-fori segments) matches
+    the vmapped while_loop solve and per-problem sequential solves."""
     from lsqr_tpu.ops.structured import dia_operator
 
     m = n = 96
     offsets = (-2, 0, 3)
     data = rng.standard_normal((len(offsets), m))
-    A = dia_operator(m, n, offsets, data, use_pallas=False)
+    A = dia_operator(m, n, offsets, data)
     B = rng.standard_normal((4, m))
     damp = np.array([0.0, 0.05, 0.2, 1.0])
 
@@ -156,33 +155,19 @@ def test_batch_bounded_matches_while_loop(rng):
 
 
 def test_batch_accepts_bounded_preferring_operator(rng):
-    """Operators advertising prefers_bounded_loop (the Pallas-product
-    operators on TPU) now auto-route to the bounded batched runner instead
-    of raising (restriction lifted). On CPU we exercise the dispatch with a
-    wrapper that advertises the preference over XLA products."""
-    import dataclasses
-
-    import jax
-
-    from lsqr_tpu.ops.structured import DIAOperator, dia_operator
-
-    @jax.tree_util.register_dataclass
-    @dataclasses.dataclass(frozen=True)
-    class _BoundedPreferringDIA(DIAOperator):
-        @property
-        def prefers_bounded_loop(self):
-            return True
+    """An explicit ``loop="bounded"`` runs the bounded batched runner on an
+    f32 DIA operator and matches the default while-loop batch (no operator
+    steers the loop form any more: ``loop`` is the caller's choice)."""
+    from lsqr_tpu.ops.structured import dia_operator
 
     m = n = 64
     data = rng.standard_normal((1, m)).astype(np.float32) + 3.0
-    Aref = dia_operator(m, n, (0,), data, use_pallas=False)
-    A = _BoundedPreferringDIA(
-        data=Aref.data, tdata=Aref.tdata, m=m, n=n, offsets=Aref.offsets,
-        use_pallas=False,
-    )
+    A = dia_operator(m, n, (0,), data)
+    assert not hasattr(A, "prefers_bounded_loop")
     B = rng.standard_normal((3, m)).astype(np.float32)
-    res = lsqr_batch(A, B, 0.01, atol=1e-6, btol=1e-6, itnlim=200)
-    ref = lsqr_batch(Aref, B, 0.01, atol=1e-6, btol=1e-6, itnlim=200)
+    res = lsqr_batch(A, B, 0.01, atol=1e-6, btol=1e-6, itnlim=200,
+                     loop="bounded", loop_segment=8)
+    ref = lsqr_batch(A, B, 0.01, atol=1e-6, btol=1e-6, itnlim=200)
     np.testing.assert_array_equal(np.asarray(res.itn), np.asarray(ref.itn))
     np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x),
                                rtol=1e-5, atol=1e-6)

@@ -110,8 +110,7 @@ def test_cgls_bounded_loop_matches_while(rng):
     m = n = 512
     offs = (-2, -1, 0, 1, 2)
     stripes = rng.standard_normal((len(offs), m)) + 3.0
-    A = lt.dia_operator(m, n, offs, stripes.astype(np.float64),
-                        use_pallas=False)
+    A = lt.dia_operator(m, n, offs, stripes.astype(np.float64))
     b = jnp.asarray(rng.standard_normal(m))
     rw = lt.cgls(A, b, atol=1e-10, btol=1e-10, loop="while")
     rb = lt.cgls(A, b, atol=1e-10, btol=1e-10, loop="bounded",

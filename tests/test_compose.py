@@ -113,7 +113,7 @@ def test_stacked_structured_blocks(rng):
     m = n = 200
     data = rng.standard_normal((3, m))
     data[1] += 4.0
-    A = dia_operator(m, n, (-1, 0, 1), data, use_pallas=False)
+    A = dia_operator(m, n, (-1, 0, 1), data)
     L = lt.diagonal_operator(jnp.full((n,), 0.5, A.dtype))
     S = lt.vstack_operators([A, L])
     dense = np.vstack([np.asarray(A.todense()), 0.5 * np.eye(n)])

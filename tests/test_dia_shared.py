@@ -1,5 +1,5 @@
 """Shared-stripe DIA operator: one padded array serves both products —
-half the HBM of the packed DIAOperator. Equivalence against the packed
+half the memory of the packed DIAOperator. Equivalence against the packed
 operator (itself COO-equivalence-tested) and the dense oracle.
 
 Reference anchor: the two aprod modes over one COO triple,
@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 
 import lsqr_tpu as lt
-from lsqr_tpu.ops.pallas_spmv import dia_product_shared, dia_shared_geometry
-from lsqr_tpu.ops.structured import dia_operator, dia_shared_operator
+from lsqr_tpu.ops.structured import (dia_operator, dia_shared_operator,
+                                     shared_geometry)
 
 
 @pytest.fixture
@@ -34,7 +34,7 @@ CASES = [
 def test_shared_matches_packed_xla(rng, m, n, ks):
     data = rng.standard_normal((len(ks), m)).astype(np.float32)
     As = dia_shared_operator(m, n, ks, data)
-    Ap = dia_operator(m, n, ks, data, use_pallas=False)
+    Ap = dia_operator(m, n, ks, data)
     x = jnp.asarray(rng.standard_normal(n).astype(np.float32))
     y = jnp.asarray(rng.standard_normal(m).astype(np.float32))
     np.testing.assert_array_equal(np.asarray(As.matvec(x)),
@@ -47,20 +47,28 @@ def test_shared_matches_packed_xla(rng, m, n, ks):
 
 @pytest.mark.parametrize("m,n,ks", CASES)
 def test_shared_pallas_kernel_interpret(rng, m, n, ks):
-    """The windowed Pallas kernel (interpret mode) vs the dense oracle,
-    including a ragged tile size."""
+    """The shared layout's geometry and its XLA products vs the dense
+    oracle: every stripe holds ``dp[d, H + i] = A[i, i + k_d]`` and is zero
+    elsewhere."""
     data = rng.standard_normal((len(ks), m)).astype(np.float32)
-    A = np.asarray(dia_operator(m, n, ks, data, use_pallas=False).todense())
-    tm = 128  # forces ragged tiles on every case
-    dp = dia_shared_operator(m, n, ks, data).dp
+    A = np.asarray(dia_operator(m, n, ks, data).todense())
+    op = dia_shared_operator(m, n, ks, data)
+    H, Lp = shared_geometry(ks, m, n)
+    assert (op.H, op.Lp) == (H, Lp)
+    assert H == max(max(ks), -min(ks), 0) and Lp >= 2 * H + max(m, n)
+    assert Lp % 1024 == 0
+    dp = np.asarray(op.dp).reshape(len(ks), Lp)
+    i = np.arange(m)
+    for d, k in enumerate(ks):
+        valid = (i + k >= 0) & (i + k < n)
+        np.testing.assert_array_equal(dp[d, H:H + m], data[d] * valid)
+        assert not dp[d, :H].any() and not dp[d, H + m:].any()
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
-    fw = dia_product_shared(dp, jnp.asarray(x), offsets=ks,
-                            m=m, n=n, adjoint=False, interpret=True, tm=tm)
-    aj = dia_product_shared(dp, jnp.asarray(y), offsets=ks,
-                            m=m, n=n, adjoint=True, interpret=True, tm=tm)
-    np.testing.assert_allclose(np.asarray(fw), A @ x, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(aj), A.T @ y, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(op.matvec(jnp.asarray(x))), A @ x,
+                               atol=2e-5)
+    np.testing.assert_allclose(np.asarray(op.rmatvec(jnp.asarray(y))),
+                               A.T @ y, atol=2e-5)
 
 
 def test_shared_solve_bit_identical_to_packed(rng):
@@ -69,7 +77,7 @@ def test_shared_solve_bit_identical_to_packed(rng):
     data = rng.standard_normal((5, m)).astype(np.float32)
     data[2] += 6.0  # diagonally dominant -> well-conditioned
     As = dia_shared_operator(m, n, ks, data)
-    Ap = dia_operator(m, n, ks, data, use_pallas=False)
+    Ap = dia_operator(m, n, ks, data)
     b = jnp.asarray(rng.standard_normal(m).astype(np.float32))
     rs = lt.lsqr(As, b, 0.05, itnlim=30, atol=0.0, btol=0.0, conlim=0.0)
     rp = lt.lsqr(Ap, b, 0.05, itnlim=30, atol=0.0, btol=0.0, conlim=0.0)
@@ -112,26 +120,20 @@ def test_shared_acheck_and_bf16(rng):
 
 
 def test_shared_fused_halfstep_path(rng):
-    """use_pallas=True routes the shared operator through the fused
-    product+axpy kernel (interpret off-TPU); the solve matches the packed
-    XLA solve at matched iteration counts."""
+    """fused=True on the shared operator (plain-XLA half-steps) matches the
+    packed XLA solve at matched iteration counts; the fused form is never
+    auto-selected."""
     m = n = 600
     ks = (-2, -1, 0, 1, 2)
     data = rng.standard_normal((5, m)).astype(np.float32)
     data[2] += 5.0
-    As = dia_shared_operator(m, n, ks, data, use_pallas=True)
-    assert As.prefers_fused
-    # the bounded-loop workaround is env-gated now that the backend's
-    # pallas-in-while_loop hang is fixed (config.bounded_loop_workaround)
-    import os
-    from unittest import mock
-
-    assert not As.prefers_bounded_loop
-    with mock.patch.dict(os.environ, {"LSQR_TPU_BOUNDED_LOOP": "1"}):
-        assert As.prefers_bounded_loop
-    Ap = dia_operator(m, n, ks, data, use_pallas=False)
+    As = dia_shared_operator(m, n, ks, data)
+    assert not getattr(As, "prefers_fused", False)
+    assert not hasattr(As, "prefers_bounded_loop")
+    Ap = dia_operator(m, n, ks, data)
     b = jnp.asarray(rng.standard_normal(m).astype(np.float32))
-    rs = lt.lsqr(As, b, 0.05, itnlim=25, atol=0.0, btol=0.0, conlim=0.0)
+    rs = lt.lsqr(As, b, 0.05, itnlim=25, atol=0.0, btol=0.0, conlim=0.0,
+                 fused=True)
     rp = lt.lsqr(Ap, b, 0.05, itnlim=25, atol=0.0, btol=0.0, conlim=0.0)
     assert int(rs.itn) == int(rp.itn)
     np.testing.assert_allclose(np.asarray(rs.x), np.asarray(rp.x),
@@ -139,26 +141,22 @@ def test_shared_fused_halfstep_path(rng):
 
 
 def test_shared_axpy_kernel_oracle(rng):
-    """dia_product_shared_axpy vs the dense oracle, both directions,
-    rectangular + one-sided offsets, ragged tiles."""
-    from lsqr_tpu.ops.pallas_spmv import dia_product_shared_axpy
-
+    """The shared operator's product + axpy half-step vs the dense oracle,
+    both directions, rectangular + one-sided offsets."""
     for (m, n, ks) in [(300, 300, (-2, -1, 0, 1, 2)),
                        (200, 330, (-3, 0, 7, 60)),
                        (330, 200, (-60, -3, 0, 5))]:
         data = rng.standard_normal((len(ks), m)).astype(np.float32)
         As = dia_shared_operator(m, n, ks, data)
-        A = np.asarray(dia_operator(m, n, ks, data, use_pallas=False).todense())
+        A = np.asarray(dia_operator(m, n, ks, data).todense())
         x = rng.standard_normal(n).astype(np.float32)
         y = rng.standard_normal(m).astype(np.float32)
         c1, c2 = 0.7, 1.3
-        fw = dia_product_shared_axpy(
-            As.dp, jnp.asarray(x), jnp.asarray(y), c1, c2, offsets=ks,
-            m=m, n=n, adjoint=False, interpret=True, tm=128)
+        fw, _ = As.fused_halfstep(forward=True, y=jnp.asarray(y),
+                                  win=jnp.asarray(x), c1=c1, c2=c2)
         np.testing.assert_allclose(np.asarray(fw), A @ (x * c1) - c2 * y,
                                    atol=3e-5)
-        aj = dia_product_shared_axpy(
-            As.dp, jnp.asarray(y), jnp.asarray(x), c1, c2, offsets=ks,
-            m=m, n=n, adjoint=True, interpret=True, tm=128)
+        aj, _ = As.fused_halfstep(forward=False, y=jnp.asarray(x),
+                                  win=jnp.asarray(y), c1=c1, c2=c2)
         np.testing.assert_allclose(np.asarray(aj), A.T @ (y * c1) - c2 * x,
                                    atol=3e-5)

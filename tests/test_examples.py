@@ -2,8 +2,8 @@
 
 Catches API drift between the library and the documented usage (the
 examples double as the README's executable documentation). Only the
-examples that finish in seconds on CPU are run; the TPU/memory-scale ones
-(03, 08, 09) and the minutes-long sweeps are exercised by their own
+examples that finish in seconds on CPU are run; the card- and memory-scale
+ones (03, 09) and the minutes-long sweeps are exercised by their own
 subsystem tests instead.
 """
 

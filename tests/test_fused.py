@@ -1,17 +1,31 @@
-"""Fused bidiagonalization half-step: kernel correctness (interpret mode)
-and end-to-end solver equivalence with the generic path.
+"""Fused bidiagonalization half-step: the operators' ``fused_halfstep``
+(product + axpy + sum of squares, plain XLA) against a dense float64
+oracle, and end-to-end solver equivalence with the generic path.
 
-The fused path keeps u/v unnormalized in the carry (norms as scalars) so
-each half-step is one streaming kernel; see ops/pallas_spmv.py and the
-fused branch in solver._build."""
+The fused path keeps u/v unnormalized in the carry (norms as scalars); see
+the fused branch in solver._build."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import lsqr_tpu as lt
-from lsqr_tpu.ops.pallas_spmv import dia_fused_halfstep
-from lsqr_tpu.ops.structured import _dia_matvec_xla, dia_operator
+from lsqr_tpu.ops.structured import dia_operator, dia_shared_operator
+
+
+def _check_halfstep(A, rng, forward, c1=0.37, c2=1.21, rtol=2e-5,
+                    ssq_rtol=1e-4):
+    D = np.asarray(A.todense(), np.float64)
+    if not forward:
+        D = D.T
+    y = rng.standard_normal(D.shape[0]).astype(np.float32)
+    v = rng.standard_normal(D.shape[1]).astype(np.float32)
+    out, ssq = A.fused_halfstep(forward=forward, y=jnp.asarray(y),
+                                win=jnp.asarray(v), c1=c1, c2=c2)
+    ref = D @ (v.astype(np.float64) * c1) - c2 * y
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=rtol, atol=2e-5)
+    np.testing.assert_allclose(float(ssq), float((ref ** 2).sum()),
+                               rtol=ssq_rtol)
 
 
 @pytest.mark.parametrize(
@@ -21,20 +35,8 @@ def test_fused_halfstep_kernel(rng, shape):
     m, n = shape
     offs = (-5, -1, 0, 2, 7)
     data = rng.standard_normal((len(offs), m)).astype(np.float32)
-    A = dia_operator(m, n, offs, data)
-    y = rng.standard_normal(m).astype(np.float32)
-    v = rng.standard_normal(n).astype(np.float32)
-    c1, c2 = 0.37, 1.21
-    out, ssq = dia_fused_halfstep(
-        A.data, jnp.asarray(y), jnp.asarray(v), c1, c2,
-        offsets=offs, m=m, n=n, interpret=True,
-    )
-    ref = np.asarray(
-        _dia_matvec_xla(A.data, jnp.asarray(v * np.float32(c1)), offs, m, n)
-    ) - np.float32(c2) * y
-    np.testing.assert_allclose(np.asarray(out), ref, atol=2e-5)
-    ref_ssq = float((ref.astype(np.float64) ** 2).sum())
-    assert abs(float(ssq) - ref_ssq) / ref_ssq < 1e-5
+    _check_halfstep(dia_operator(m, n, offs, data), rng, forward=True,
+                    rtol=0, ssq_rtol=1e-5)
 
 
 def test_fused_solver_matches_generic(rng):
@@ -42,7 +44,7 @@ def test_fused_solver_matches_generic(rng):
     offs = (-3, -1, 0, 2, 5)
     data = rng.standard_normal((len(offs), m)).astype(np.float32)
     data[2] += 6.0  # diagonally dominant -> converges
-    A = dia_operator(m, n, offs, data, use_pallas=False)
+    A = dia_operator(m, n, offs, data)
     xt = rng.standard_normal(n).astype(np.float32)
     b = np.asarray(A.matvec(jnp.asarray(xt)))
     ref = lt.lsqr(A, b, 0.0, atol=1e-6, btol=1e-6, itnlim=200)
@@ -59,7 +61,7 @@ def test_fused_damped_and_rect(rng):
     m, n = 500, 700
     offs = (-2, 0, 1, 4)
     data = rng.standard_normal((len(offs), m)).astype(np.float32)
-    A = dia_operator(m, n, offs, data, use_pallas=False)
+    A = dia_operator(m, n, offs, data)
     b = rng.standard_normal(m).astype(np.float32)
     ref = lt.lsqr(A, b, 0.3, atol=1e-5, btol=1e-5, itnlim=120)
     res = lt.lsqr(A, b, 0.3, atol=1e-5, btol=1e-5, itnlim=120,
@@ -71,8 +73,7 @@ def test_fused_damped_and_rect(rng):
 
 
 def test_fused_zero_rhs(rng):
-    A = dia_operator(100, 100, (0,), np.ones((1, 100), np.float32),
-                     use_pallas=False)
+    A = dia_operator(100, 100, (0,), np.ones((1, 100), np.float32))
     res = lt.lsqr(A, np.zeros(100, np.float32), 0.0, fused=True,
                   loop="bounded")
     assert int(res.istop) == 0 and int(res.itn) == 0
@@ -87,51 +88,21 @@ def test_fused_requires_capable_operator(rng):
 @pytest.mark.parametrize("ssq_out", ["vmem", "smem"])
 @pytest.mark.parametrize("shape", [(1500, 1500), (2100, 1800)])
 def test_fused_halfstep_v2_kernel(rng, shape, ssq_out):
-    """v2: product + axpy + norm in one kernel with the norm partial in a
-    separate small output (VERDICT.md round-1 item 2's layout fix)."""
-    from lsqr_tpu.ops.pallas_spmv import dia_fused_halfstep_v2
-    from lsqr_tpu.ops.structured import _dia_matvec_xla, dia_operator
-
+    """Both directions of the packed operator's half-step; ``ssq_out``
+    keeps the old norm-layout cases' ids and picks the direction."""
     m, n = shape
     offs = (-3, 0, 5)
     data = rng.standard_normal((len(offs), m)).astype(np.float32)
-    A = dia_operator(m, n, offs, data, use_pallas=False)
-    y = rng.standard_normal(m).astype(np.float32)
-    v = rng.standard_normal(n).astype(np.float32)
-    c1, c2 = 0.37, 1.21
-    out, ssq = dia_fused_halfstep_v2(
-        A.data, jnp.asarray(y), jnp.asarray(v), c1, c2,
-        offsets=offs, m=m, n=n, interpret=True, ssq_out=ssq_out,
-    )
-    ref = np.asarray(
-        _dia_matvec_xla(A.data, jnp.asarray(v * np.float32(c1)), offs, m, n)
-    ) - np.float32(c2) * y
-    np.testing.assert_allclose(np.asarray(out), ref, rtol=2e-5, atol=2e-5)
-    ref_ssq = float((ref.astype(np.float64) ** 2).sum())
-    np.testing.assert_allclose(float(ssq), ref_ssq, rtol=1e-4)
+    _check_halfstep(dia_operator(m, n, offs, data), rng,
+                    forward=ssq_out == "vmem")
 
 
 @pytest.mark.parametrize("shape", [(1500, 1500), (2100, 1800)])
 def test_fused_halfstep_v3_kernel(rng, shape):
-    """v3: per-tile norm partials in DISTINCT (1, 128) rows of an (nt, 128)
-    output — no cross-step read-modify-write (VERDICT round-1 item 2)."""
-    from lsqr_tpu.ops.pallas_spmv import dia_fused_halfstep_v3
-    from lsqr_tpu.ops.structured import _dia_matvec_xla, dia_operator
-
+    """The shared-stripe operator's half-step, both directions."""
     m, n = shape
     offs = (-3, 0, 5)
     data = rng.standard_normal((len(offs), m)).astype(np.float32)
-    A = dia_operator(m, n, offs, data, use_pallas=False)
-    y = rng.standard_normal(m).astype(np.float32)
-    v = rng.standard_normal(n).astype(np.float32)
-    c1, c2 = 0.37, 1.21
-    out, ssq = dia_fused_halfstep_v3(
-        A.data, jnp.asarray(y), jnp.asarray(v), c1, c2,
-        offsets=offs, m=m, n=n, interpret=True,
-    )
-    ref = np.asarray(
-        _dia_matvec_xla(A.data, jnp.asarray(v * np.float32(c1)), offs, m, n)
-    ) - np.float32(c2) * y
-    np.testing.assert_allclose(np.asarray(out), ref, rtol=2e-5, atol=2e-5)
-    ref_ssq = float((ref.astype(np.float64) ** 2).sum())
-    np.testing.assert_allclose(float(ssq), ref_ssq, rtol=1e-4)
+    A = dia_shared_operator(m, n, offs, data)
+    _check_halfstep(A, rng, forward=True)
+    _check_halfstep(A, rng, forward=False)

@@ -102,7 +102,7 @@ def test_grad_dia_stripes(rng):
     offsets = (-1, 0, 1)
     data0 = rng.standard_normal((3, m))
     data0[1] += 4.0
-    base = dia_operator(m, n, offsets, data0, use_pallas=False)
+    base = dia_operator(m, n, offsets, data0)
     b = jnp.asarray(rng.standard_normal(m))
     tgt = jnp.asarray(rng.standard_normal(n))
 

@@ -63,11 +63,9 @@ def test_auto_operator_fallback_ell(rng):
     if isinstance(op, SumOperator):
         assert isinstance(op.ops[0], ELLOperator)
         assert isinstance(op.ops[1], COOOperator)
-        # width selection follows the measured cost model (round 4:
-        # SPILL_COST=1.5 — on TPU a spilled entry costs ~1.5x a
-        # streamed ELL slot, so small widths with big spills are now
-        # the CORRECT choice for sparse rows): the chosen split must
-        # not cost more than pure max-width ELL
+        # width selection follows the byte cost model (SPILL_COST=1.5:
+        # a spilled COO entry stores 1.5x a streamed ELL slot): the
+        # chosen split must not cost more than pure max-width ELL
         w = op.ops[0].vals.shape[1]
         spilled = op.ops[1].nnz
         counts = np.bincount(rows, minlength=m)
@@ -80,12 +78,11 @@ def test_auto_operator_fallback_ell(rng):
 
 
 def test_auto_operator_blocky_gate(rng):
-    # ADVICE r4: a genuinely blocky small-n pattern must keep its BlockELL
-    # route (streams stored values ~4x the WCOO pair rate at fill <= 4x),
-    # while an unstructured pattern in the same (m, n) regime routes WCOO.
+    # a genuinely blocky small-n pattern keeps its BlockELL route, while
+    # an unstructured pattern in the same (m, n) regime fails BlockELL's
+    # fill check and lands on HYB, with correct products
     from lsqr_tpu.ops.interop import _block_fill_ratio
     from lsqr_tpu.ops.structured import BlockELLOperator
-    from lsqr_tpu.ops.wcoo import WCOOOperator
 
     m, n, per = 16384, 2048, 4915  # ~30%-dense (128,128) diagonal blocks
     rows, cols = [], []
@@ -101,9 +98,11 @@ def test_auto_operator_blocky_gate(rng):
     r3 = rng.integers(0, m, 40000)
     c3 = rng.integers(0, n, 40000)
     assert _block_fill_ratio(r3, c3, m, n) > 4.0
-    op = auto_operator(
-        m, n, rng.standard_normal(40000).astype(np.float32), r3, c3)
-    assert isinstance(op, WCOOOperator)
+    v3 = rng.standard_normal(40000).astype(np.float32)
+    op = auto_operator(m, n, v3, r3, c3)
+    assert not isinstance(op, BlockELLOperator)
+    S = scipy.sparse.coo_matrix((v3, (r3, c3)), shape=(m, n)).tocsr()
+    _check_matches(op, S, rng, atol=1e-4)
 
 
 def test_csr_operator(rng):
@@ -175,8 +174,8 @@ def test_lsqr_scipy_undamped_var(rng):
 
 def test_auto_operator_compact_dia(rng):
     """Banded routing by dtype (round 5): f64 keeps the packed DIA form
-    (x64 conformance), f32 defaults to the shared-stripe form (faster
-    carry pair + half the operator HBM), and compact=True forces shared
+    (x64 conformance), f32 defaults to the shared-stripe form (the GPU
+    pair kernel's layout, half the operator memory), and compact=True forces shared
     for f64 too (see test_dia_shared.py)."""
     from lsqr_tpu.ops.interop import auto_operator
     from lsqr_tpu.ops.structured import DIAOperator, DIASharedOperator
@@ -352,3 +351,20 @@ def test_from_bcoo_rejects_batched(rng):
     batched = jsparse.BCOO.fromdense(dense, n_batch=1)
     with pytest.raises(ValueError, match="unbatched"):
         lt.from_bcoo(batched)
+
+
+def test_hyb_power_law_columns_take_coo(rng):
+    """HYB caps the row padding only; a power-law COLUMN distribution would
+    pad the transpose ELL to the heaviest column, so it takes COO, with
+    correct products."""
+    from lsqr_tpu.ops.coo import COOOperator
+    from lsqr_tpu.ops.structured import hyb_operator
+
+    m, n, per_row = 4096, 1024, 8
+    cols = np.minimum(rng.zipf(1.1, m * per_row) - 1, n - 1)
+    rows = np.repeat(np.arange(m), per_row)
+    vals = rng.standard_normal(m * per_row).astype(np.float32)
+    op = hyb_operator(m, n, vals, rows, cols)
+    assert isinstance(op, COOOperator)
+    S = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    _check_matches(op, S, rng, atol=1e-4)

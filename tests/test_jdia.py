@@ -1,7 +1,6 @@
 """JDIA (jittered-diagonal) operator tests — the general-sparsity fast
-path. Correctness oracle: COOOperator / dense. The Pallas kernel itself is
-exercised in interpreter mode; compiled-kernel numbers come from TPU bench
-runs (BENCHMARKS.md).
+path. Correctness oracle: COOOperator / dense, and a numpy loop over the
+packed arrays for the XLA gather product.
 """
 
 import jax.numpy as jnp
@@ -37,7 +36,7 @@ def _jittered_band_coo(rng, m, n, nnz_per_row=6, spread=20, outliers=0.01):
 def test_jdia_products_match_coo(rng, shape):
     m, n = shape
     vals, rows, cols = _jittered_band_coo(rng, m, n)
-    A = jdia_operator(m, n, vals, rows, cols, tm=1024, use_pallas=False)
+    A = jdia_operator(m, n, vals, rows, cols, tm=1024)
     ref = lt.coo_operator(m, n, vals, rows, cols)
     assert A.fit_fraction > 0.9, A.fit_fraction
     x = rng.standard_normal(n).astype(np.float32)
@@ -57,7 +56,7 @@ def test_jdia_products_match_coo(rng, shape):
 def test_jdia_todense_matches_coo(rng):
     m, n = 400, 300
     vals, rows, cols = _jittered_band_coo(rng, m, n, outliers=0.05)
-    A = jdia_operator(m, n, vals, rows, cols, tm=1024, use_pallas=False)
+    A = jdia_operator(m, n, vals, rows, cols, tm=1024)
     ref = lt.coo_operator(m, n, vals, rows, cols)
     np.testing.assert_allclose(
         np.asarray(A.todense()), np.asarray(ref.todense()),
@@ -66,15 +65,14 @@ def test_jdia_todense_matches_coo(rng):
 
 
 def test_jdia_kernel_interpret_matches_xla(rng):
-    """The Pallas kernel (interpret mode) against the XLA gather oracle."""
-    from lsqr_tpu.ops.jdia import jdia_pack
-    from lsqr_tpu.ops.pallas_spmv import jdia_matvec
-    from lsqr_tpu.ops.jdia import _jdia_matvec_xla
+    """The XLA gather product of the packed arrays against a numpy loop
+    over the same packing (slot window start + per-row jitter)."""
+    from lsqr_tpu.ops.jdia import JITTER, _jdia_matvec_xla, jdia_pack
 
     m = n = 2048
     vals, rows, cols = _jittered_band_coo(rng, m, n, outliers=0.0)
     p = jdia_pack(m, n, vals, rows, cols, tm=1024)
-    # oracle and kernel consume the same packed arrays, so the (small)
+    # oracle and product consume the same packed arrays, so the (small)
     # remainder is irrelevant to this comparison
     assert p["rem_vals"].size < 0.05 * vals.size
     x = rng.standard_normal(n).astype(np.float32)
@@ -82,17 +80,18 @@ def test_jdia_kernel_interpret_matches_xla(rng):
     length = max((nt - 1) * p["tm"] + p["win"], p["p_lo"] + n)
     xp = np.zeros(length, np.float32)
     xp[p["p_lo"]:p["p_lo"] + n] = x
-    ref = _jdia_matvec_xla(
+    got = _jdia_matvec_xla(
         jnp.asarray(p["data"]), jnp.asarray(p["eoff"]),
         jnp.asarray(p["base"]), jnp.asarray(xp), m, p["tm"]
     )
-    got = jdia_matvec(
-        jnp.asarray(p["data"]), jnp.asarray(p["eoff"]),
-        jnp.asarray(p["base"]), jnp.asarray(xp),
-        m=m, n=n, win=p["win"], tm=p["tm"], interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=2e-5, atol=2e-5)
+    data, eoff, base = p["data"], p["eoff"], p["base"]
+    i = np.arange(m)
+    ref = np.zeros(m)
+    for s_ in range(data.shape[0]):
+        c = i + base[s_, i // p["tm"]] + JITTER - p["p_lo"] + eoff[s_, :m]
+        ok = (c >= 0) & (c < n)
+        ref[ok] += data[s_, :m][ok].astype(np.float64) * x[c[ok]]
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=2e-5, atol=2e-5)
 
 
 def test_jdia_random_pattern_goes_to_remainder(rng):
@@ -107,7 +106,7 @@ def test_jdia_random_pattern_goes_to_remainder(rng):
     _, uniq = np.unique(key, return_index=True)
     rows, cols = rows[uniq], cols[uniq]
     vals = rng.standard_normal(rows.size)
-    A = jdia_operator(m, n, vals, rows, cols, tm=1024, use_pallas=False)
+    A = jdia_operator(m, n, vals, rows, cols, tm=1024)
     ref = lt.coo_operator(m, n, vals, rows, cols)
     x = rng.standard_normal(n).astype(np.float32)
     np.testing.assert_allclose(
@@ -126,7 +125,6 @@ def test_jdia_f64_products_exact(rng):
     assert vals.dtype == np.float64
     A = jdia_operator(m, n, vals, rows, cols, tm=1024)
     assert A.dtype == jnp.float64
-    assert not A._pallas_selected()
     ref = lt.coo_operator(m, n, vals, rows, cols)
     x = rng.standard_normal(n)
     y = rng.standard_normal(m)
@@ -142,7 +140,7 @@ def test_jdia_adjoint_and_solve(rng):
     m, n = 800, 600
     vals, rows, cols = _jittered_band_coo(rng, m, n)
     # pin f32 on both sides (jdia_operator infers f64 from f64 vals)
-    A = jdia_operator(m, n, vals, rows, cols, tm=1024, use_pallas=False,
+    A = jdia_operator(m, n, vals, rows, cols, tm=1024,
                       dtype=np.float32)
     chk = lt.acheck(A)
     assert int(chk.inform) == 0, float(chk.error)

@@ -226,7 +226,7 @@ def test_multidamp_sharded_dia_matches_unsharded(rng):
     offsets = (-1, 0, 2)
     data = rng.standard_normal((len(offsets), m))
     data[1] += 4.0  # diagonal dominance bounds the conditioning, so the
-    A = dia_operator(m, n, offsets, jnp.asarray(data), use_pallas=False)
+    A = dia_operator(m, n, offsets, jnp.asarray(data))
     b = jnp.asarray(rng.standard_normal(m))  # comparison is rounding-tight
     damps = [0.0, 0.3]
     mesh = make_mesh(8)
@@ -250,7 +250,7 @@ def test_multidamp_sharded_dia_pair_mode(rng):
     offsets = (-1, 0, 2)
     data = rng.standard_normal((len(offsets), m)).astype(np.float32)
     data[1] += 4.0  # bounded conditioning (see the test above)
-    A = dia_operator(m, n, offsets, jnp.asarray(data), use_pallas=False)
+    A = dia_operator(m, n, offsets, jnp.asarray(data))
     b = jnp.asarray(rng.standard_normal(m), jnp.float32)
     damps = [0.0, 0.3]
     mesh = make_mesh(4)

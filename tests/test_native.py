@@ -120,49 +120,3 @@ def test_operators_use_native(rng):
             atol=1e-12,
         )
 
-
-def test_wcoo_pack_native_bit_identical(rng):
-    """The C++ WCOO packer (round-5 item 8) must reproduce the numpy
-    pipeline EXACTLY — same stable sort orders, padding rules, and window
-    tables — across a zipf pattern with duplicates."""
-    from lsqr_tpu import native
-    from lsqr_tpu.ops import wcoo as W
-
-    m, n, nnz = 40000, 1500, 60000
-    cols = rng.zipf(1.2, size=4 * nnz) - 1
-    cols = cols[cols < n][:nnz].astype(np.int64)
-    rows = rng.integers(0, m, nnz).astype(np.int64)
-    rows[-50:] = rows[:50]
-    cols[-50:] = cols[:50]   # duplicates exercise sort stability
-    vals = rng.standard_normal(nnz).astype(np.float32)
-
-    p_nat = W.wcoo_pack(m, n, vals, rows, cols)
-    orig = native.wcoo_pack_chunks
-    native.wcoo_pack_chunks = lambda *a, **k: None  # force numpy path
-    try:
-        p_np = W.wcoo_pack(m, n, vals, rows, cols)
-    finally:
-        native.wcoo_pack_chunks = orig
-    for f in ("vals", "idx", "vals_r", "col_r", "ep", "gpe", "ugb", "bnb"):
-        assert bool((np.asarray(getattr(p_nat, f))
-                     == np.asarray(getattr(p_np, f))).all()), f
-    for f in ("m", "n", "m_pad", "nc", "eb", "xs", "kb", "ku"):
-        assert getattr(p_nat, f) == getattr(p_np, f), f
-
-
-def test_wcoo_pack_time_bound(rng):
-    """Pack-cost regression bound (round-5 item 8): packing must stay
-    O(nnz) — 2M entries in well under 20 s even on a loaded CI host
-    (native path ~0.3 s, numpy fallback ~1.5 s; an accidental quadratic
-    chunk loop blows this immediately)."""
-    import time
-
-    from lsqr_tpu.ops import wcoo as W
-
-    nnz, m, n = 2 * (1 << 20), 1 << 20, 2048
-    cols = rng.integers(0, n, nnz).astype(np.int64)
-    rows = rng.integers(0, m, nnz).astype(np.int64)
-    vals = rng.standard_normal(nnz).astype(np.float32)
-    t0 = time.perf_counter()
-    W.wcoo_pack(m, n, vals, rows, cols)
-    assert time.perf_counter() - t0 < 20.0

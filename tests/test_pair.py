@@ -3,17 +3,27 @@ the bidiagonalization step (lsqr.f90:681-694) —
 
     u_new = A (v*c1) - c2*u      and      z = A' u_new
 
-so the stripes are read ONCE per LSQR iteration instead of twice. Kernel
-correctness (interpret mode) across geometries, plus end-to-end solver
-equivalence with the generic path (pair=True vs default)."""
+so the stripes are read ONCE per LSQR iteration instead of twice. The
+Triton pair kernel (interpret mode) across geometries against a dense
+oracle, plus end-to-end solver equivalence with the generic path
+(pair=True vs default)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import lsqr_tpu as lt
-from lsqr_tpu.ops.pallas_spmv import dia_pair
-from lsqr_tpu.ops.structured import dia_operator
+from lsqr_tpu.ops.structured import dia_operator, dia_shared_operator
+from lsqr_tpu.ops.triton_pair import dia_pair_triton
+
+
+def dia_pair(data, y, v, c1, c2, *, offsets, m, n, tm=1024, storage=None):
+    """The Triton pair in interpret mode on the shared layout of ``data``;
+    the tile grows to cover the halo when the offsets are wider than it."""
+    op = dia_shared_operator(m, n, offsets, data, storage_dtype=storage)
+    tile = max(tm, 1 << max(op.H - 1, 0).bit_length())
+    return dia_pair_triton(op.dp, v, y, c1, c2, offsets=offsets, m=m, n=n,
+                           H=op.H, tile=tile, interpret=True)
 
 
 def _dense_from_offsets(rng, m, n, offsets):
@@ -51,7 +61,7 @@ def test_dia_pair_kernel(rng, m, n, offsets, tm):
     z_ref = A.T @ u_ref
     u, z = dia_pair(
         jnp.asarray(data), jnp.asarray(y), jnp.asarray(v), c1, c2,
-        offsets=offsets, m=m, n=n, interpret=True, tm=tm,
+        offsets=offsets, m=m, n=n, tm=tm,
     )
     scale_u = np.abs(u_ref).max() + 1e-30
     scale_z = np.abs(z_ref).max() + 1e-30
@@ -67,8 +77,8 @@ def test_dia_pair_bf16_storage(rng):
     y = rng.standard_normal(m).astype(np.float32)
     data16 = jnp.asarray(data).astype(jnp.bfloat16)
     u, z = dia_pair(
-        data16, jnp.asarray(y), jnp.asarray(v), 1.0, 0.5,
-        offsets=offsets, m=m, n=n, interpret=True, tm=1024,
+        jnp.asarray(data), jnp.asarray(y), jnp.asarray(v), 1.0, 0.5,
+        offsets=offsets, m=m, n=n, tm=1024, storage=jnp.bfloat16,
     )
     assert u.dtype == jnp.float32 and z.dtype == jnp.float32
     A16 = np.asarray(data16.astype(jnp.float32))
@@ -90,7 +100,7 @@ def _solve_pair_vs_ref(rng, m, n, offsets, damp, **kw):
     data = rng.standard_normal((nd, m)).astype(np.float32)
     if 0 in offsets:
         data[offsets.index(0)] += 6.0
-    A = dia_operator(m, n, offsets, data, use_pallas=False)
+    A = dia_operator(m, n, offsets, data)
     b = rng.standard_normal(m).astype(np.float32)
     ref = lt.lsqr(A, b, damp, atol=1e-6, btol=1e-6, **kw)
     res = lt.lsqr(A, b, damp, atol=1e-6, btol=1e-6, pair=True, **kw)
@@ -123,7 +133,7 @@ def test_pair_bounded_loop(rng):
     offsets = (-1, 0, 1)
     data = rng.standard_normal((3, m)).astype(np.float32)
     data[1] += 5.0
-    A = dia_operator(m, n, offsets, data, use_pallas=False)
+    A = dia_operator(m, n, offsets, data)
     b = rng.standard_normal(m).astype(np.float32)
     ref = lt.lsqr(A, b, 0.0, atol=1e-6, btol=1e-6, pair=True)
     res = lt.lsqr(A, b, 0.0, atol=1e-6, btol=1e-6, pair=True,
@@ -153,9 +163,8 @@ def test_pair_requires_capable_operator(rng):
     ],
 )
 def test_dia_pair_shared_kernel(rng, m, n, offsets):
-    from lsqr_tpu.ops.pallas_spmv import dia_pair_shared
-    from lsqr_tpu.ops.structured import dia_shared_operator
-
+    """The Triton pair at its default tile, straight from the operator's
+    shared stripes."""
     data = rng.standard_normal((len(offsets), m)).astype(np.float32)
     i = np.arange(m)
     A = np.zeros((m, n), np.float32)
@@ -170,9 +179,9 @@ def test_dia_pair_shared_kernel(rng, m, n, offsets):
     c1, c2 = 0.8, 1.1
     u_ref = A @ (v * np.float32(c1)) - np.float32(c2) * y
     z_ref = A.T @ u_ref
-    u, z = dia_pair_shared(
+    u, z = dia_pair_triton(
         op.dp, jnp.asarray(v), jnp.asarray(y), c1, c2,
-        offsets=offsets, m=m, n=n, interpret=True,
+        offsets=offsets, m=m, n=n, H=op.H, interpret=True,
     )
     assert np.abs(np.asarray(u) - u_ref).max() / (np.abs(u_ref).max()) < 5e-6
     assert np.abs(np.asarray(z) - z_ref).max() / (np.abs(z_ref).max()) < 5e-6
@@ -202,7 +211,7 @@ def test_pair_trace_matches(rng):
     offsets = (-1, 0, 1)
     data = rng.standard_normal((3, m)).astype(np.float32)
     data[1] += 5.0
-    A = dia_operator(m, n, offsets, data, use_pallas=False)
+    A = dia_operator(m, n, offsets, data)
     b = rng.standard_normal(m).astype(np.float32)
     ref = lt.lsqr(A, b, 0.0, atol=1e-5, btol=1e-5, record_trace=True)
     res = lt.lsqr(A, b, 0.0, atol=1e-5, btol=1e-5, record_trace=True,
@@ -227,7 +236,7 @@ def test_pair_f64_stays_exact(rng):
     data = rng.standard_normal((3, m))  # float64 under the x64 conftest
     data[1] += 5.0
     b = rng.standard_normal(m)
-    for op in (dia_operator(m, n, offsets, data, use_pallas=False),
+    for op in (dia_operator(m, n, offsets, data),
                dia_shared_operator(m, n, offsets, data)):
         assert op.dtype == np.float64
         ref = lt.lsqr(op, b, 0.01, atol=1e-12, btol=1e-12)
@@ -258,20 +267,22 @@ def _block_problem(rng, mb=12, nbk=10, bh=8, bw=8, per_row=3):
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_block_ell_pair(rng, use_pallas):
     """BlockELL fused pair: per-block adjoint partials + block-level
-    segment-sum replace the transpose packing; kernel form (interpret)
-    and einsum form agree with the dense oracle."""
-    import dataclasses
+    segment-sum replace the transpose packing; eager and jitted (the
+    ``use_pallas`` id of the removed kernel case) einsum forms agree with
+    the dense oracle."""
+    import jax
 
     A, dense = _block_problem(rng)
-    if use_pallas:
-        A = dataclasses.replace(A, use_pallas=True)
     m, n = dense.shape
     v = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
     c1, c2 = 0.9, 1.2
     u_ref = dense @ (v * np.float32(c1)) - np.float32(c2) * y
     z_ref = dense.T @ u_ref
-    u, z = A.fused_pair(y=jnp.asarray(y), win=jnp.asarray(v), c1=c1, c2=c2)
+    pair = (jax.jit(lambda A, y, v: A.fused_pair(y=y, win=v, c1=c1, c2=c2))
+            if use_pallas else
+            lambda A, y, v: A.fused_pair(y=y, win=v, c1=c1, c2=c2))
+    u, z = pair(A, jnp.asarray(y), jnp.asarray(v))
     assert np.abs(np.asarray(u) - u_ref).max() < 1e-4
     assert np.abs(np.asarray(z) - z_ref).max() < 1e-4
 
@@ -290,9 +301,9 @@ def test_block_ell_pair_solve(rng):
 
 @pytest.mark.slow
 def test_dia_pair_geometry_fuzz(rng):
-    """Randomized geometry sweep for the pair kernel's overlap-add: random
-    shapes (incl. m < tile), offset sets (one-sided, wide, sparse) and
-    scalars, interpret mode vs dense oracle."""
+    """Randomized geometry sweep for the pair kernel's halo: random shapes
+    (incl. m < tile), offset sets (one-sided, wide, sparse) and scalars,
+    interpret mode vs dense oracle."""
     for trial in range(25):
         m = int(rng.integers(64, 4200))
         n = int(rng.integers(64, 4200))
@@ -309,7 +320,7 @@ def test_dia_pair_geometry_fuzz(rng):
         z_ref = A.T @ u_ref
         u, z = dia_pair(
             jnp.asarray(data), jnp.asarray(y), jnp.asarray(v), c1, c2,
-            offsets=offsets, m=m, n=n, interpret=True, tm=1024,
+            offsets=offsets, m=m, n=n, tm=1024,
         )
         su = np.abs(u_ref).max() + 1e-30
         sz = np.abs(z_ref).max() + 1e-30
@@ -320,31 +331,28 @@ def test_dia_pair_geometry_fuzz(rng):
         )
 
 
-def test_dia_pair_xla_matches_separate_products(rng):
-    """Blocked pure-XLA fused pair (structured.dia_pair_xla): one pass over
-    each stripe block feeds both the forward FMA chain and the scatter-free
-    adjoint overlap-add — the Mosaic-free analogue of dia_pair."""
+@pytest.mark.parametrize("m,n,offs", [
+    (3000, 3000, (-2, 0, 3)),
+    (2500, 3100, (-7, -1, 0, 2, 9)),
+    (3100, 2500, (-3, 0, 1)),
+    (2048, 2048, (0,)),
+])
+def test_dia_fused_pair_matches_dense(rng, m, n, offs):
+    """DIAOperator.fused_pair (two XLA products) against the dense oracle:
+    u = A (w c1) - c2 y and z = A' u, rectangular and one-sided bands."""
     import jax.numpy as jnp
 
-    from lsqr_tpu.ops.structured import dia_operator, dia_pair_xla
+    from lsqr_tpu.ops.structured import dia_operator
 
-    for (m, n, offs) in [
-        (3000, 3000, (-2, 0, 3)),
-        (2500, 3100, (-7, -1, 0, 2, 9)),
-        (3100, 2500, (-3, 0, 1)),
-        (2048, 2048, (0,)),
-    ]:
-        A = dia_operator(
-            m, n, offs,
-            rng.standard_normal((len(offs), m)).astype(np.float32),
-            use_pallas=False,
-        )
-        y = rng.standard_normal(m).astype(np.float32)
-        w = rng.standard_normal(n).astype(np.float32)
-        c1, c2 = np.float32(0.7), np.float32(1.3)
-        u_ref = np.asarray(A.matvec(jnp.asarray(w * c1))) - c2 * y
-        z_ref = np.asarray(A.rmatvec(jnp.asarray(u_ref)))
-        u, z = dia_pair_xla(A.data, jnp.asarray(y), jnp.asarray(w), c1, c2,
-                            offsets=offs, m=m, n=n, block=1000)
-        np.testing.assert_allclose(np.asarray(u), u_ref, rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(z), z_ref, rtol=2e-4, atol=2e-4)
+    A = dia_operator(
+        m, n, offs, rng.standard_normal((len(offs), m)).astype(np.float32),
+    )
+    dense = np.asarray(A.todense(), np.float64)
+    y = rng.standard_normal(m).astype(np.float32)
+    w = rng.standard_normal(n).astype(np.float32)
+    c1, c2 = np.float32(0.7), np.float32(1.3)
+    u_ref = dense @ (w.astype(np.float64) * c1) - c2 * y
+    z_ref = dense.T @ u_ref
+    u, z = A.fused_pair(y=jnp.asarray(y), win=jnp.asarray(w), c1=c1, c2=c2)
+    np.testing.assert_allclose(np.asarray(u), u_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(z), z_ref, rtol=2e-4, atol=2e-4)

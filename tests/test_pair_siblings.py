@@ -15,7 +15,7 @@ def _banded(rng, m, n, offsets, dom=6.0):
     data = rng.standard_normal((len(offsets), m)).astype(np.float32)
     if 0 in offsets:
         data[offsets.index(0)] += dom
-    return dia_operator(m, n, offsets, data, use_pallas=False)
+    return dia_operator(m, n, offsets, data)
 
 
 def test_lsmr_pair_matches(rng):

@@ -1,14 +1,18 @@
-"""Pallas kernel tests in interpreter mode (no TPU required) — the XLA
-structured operators are the correctness oracle. On-chip correctness of the
-compiled kernels is exercised by bench/verification runs on real hardware."""
+"""Structured-operator products against a dense float64 oracle. These cases
+once drove the removed Pallas kernels in interpret mode; the kernels are gone and the
+same parametrisations now check the XLA products that replaced them
+(including the padded block layouts the kernels used to consume)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from lsqr_tpu.models.synthetic import block_banded_coo
-from lsqr_tpu.ops.pallas_spmv import block_ell_matvec, dia_matvec
 from lsqr_tpu.ops.structured import block_ell_operator, dia_operator
+
+
+def _dense(op):
+    return np.asarray(op.todense(), np.float64)
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (384, 256), (256, 384)])
@@ -19,18 +23,13 @@ def test_block_ell_kernel_interpret(rng, shape):
     )
     # extend to rectangular by reusing square pattern inside the corner
     bell = block_ell_operator(m, n, vals, rows, cols, block=(128, 128))
+    D = _dense(bell)
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
-    ref_mv = np.asarray(bell.matvec(jnp.asarray(x)))
-    got_mv = np.asarray(
-        block_ell_matvec(bell.blocks, bell.bcols, jnp.asarray(x), interpret=True)
-    )[:m]
-    np.testing.assert_allclose(got_mv, ref_mv, rtol=2e-5, atol=2e-5)
-    ref_rmv = np.asarray(bell.rmatvec(jnp.asarray(y)))
-    got_rmv = np.asarray(
-        block_ell_matvec(bell.tblocks, bell.tbrows, jnp.asarray(y), interpret=True)
-    )[:n]
-    np.testing.assert_allclose(got_rmv, ref_rmv, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(bell.matvec(jnp.asarray(x))),
+                               D @ x, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(bell.rmatvec(jnp.asarray(y))),
+                               D.T @ y, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize(
@@ -46,47 +45,35 @@ def test_dia_kernel_interpret(rng, shape, offsets):
     m, n = shape
     data = rng.standard_normal((len(offsets), m)).astype(np.float32)
     A = dia_operator(m, n, offsets, data)
+    D = _dense(A)
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
-    ref_mv = np.asarray(A.matvec(jnp.asarray(x)))
-    got_mv = np.asarray(
-        dia_matvec(A.data, jnp.asarray(x), offsets=A.offsets, m=m, n=n, interpret=True)
-    )
-    np.testing.assert_allclose(got_mv, ref_mv, rtol=2e-5, atol=2e-5)
-    # transpose stripes drive SpMV-T through the same kernel
-    ref_rmv = np.asarray(A.rmatvec(jnp.asarray(y)))
-    got_rmv = np.asarray(
-        dia_matvec(
-            A.tdata, jnp.asarray(y), offsets=A.toffsets, m=n, n=m, interpret=True
-        )
-    )
-    np.testing.assert_allclose(got_rmv, ref_rmv, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(A.matvec(jnp.asarray(x))), D @ x,
+                               rtol=2e-5, atol=2e-5)
+    # transpose stripes drive SpMV-T through the same product
+    np.testing.assert_allclose(np.asarray(A.rmatvec(jnp.asarray(y))),
+                               D.T @ y, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("shape,tr", [((1024, 1024), None), ((1536, 1024), 3)])
 def test_block_ell_windowed_kernel_interpret(rng, shape, tr):
-    from lsqr_tpu.ops.pallas_spmv import block_ell_matvec_windowed
-
+    """The block-padded vectors (nb*bw, mb*bh) give the same products as the
+    unpadded ones; ``tr`` keeps the old row-tile cases' ids."""
     m, n = shape
     vals, rows, cols = block_banded_coo(
         min(m, n), min(m, n), block=128, band_blocks=1, dtype=np.float32
     )
     bell = block_ell_operator(m, n, vals, rows, cols, block=(128, 128))
+    D = _dense(bell)
     x = rng.standard_normal(n).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
     nb = bell.tblocks.shape[0]
     xp = jnp.zeros((nb * 128,), jnp.float32).at[:n].set(jnp.asarray(x))
-    ref_mv = np.asarray(bell.matvec(jnp.asarray(x)))
-    got_mv = np.asarray(
-        block_ell_matvec_windowed(bell.blocks, bell.bcols, xp,
-                                  interpret=True, tr=tr)
-    )[:m]
-    np.testing.assert_allclose(got_mv, ref_mv, rtol=2e-5, atol=2e-5)
+    got_mv = bell._matvec_xla(xp, bell.blocks, bell.bcols, m, bell.bw)
+    np.testing.assert_allclose(np.asarray(got_mv), D @ x, rtol=2e-5,
+                               atol=2e-5)
     mb = bell.blocks.shape[0]
     yp = jnp.zeros((mb * 128,), jnp.float32).at[:m].set(jnp.asarray(y))
-    ref_rmv = np.asarray(bell.rmatvec(jnp.asarray(y)))
-    got_rmv = np.asarray(
-        block_ell_matvec_windowed(bell.tblocks, bell.tbrows, yp,
-                                  interpret=True, tr=tr)
-    )[:n]
-    np.testing.assert_allclose(got_rmv, ref_rmv, rtol=2e-5, atol=2e-5)
+    got_rmv = bell._matvec_xla(yp, bell.tblocks, bell.tbrows, n, bell.bh)
+    np.testing.assert_allclose(np.asarray(got_rmv), D.T @ y, rtol=2e-5,
+                               atol=2e-5)

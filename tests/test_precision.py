@@ -1,10 +1,10 @@
-"""f32 conformance mode — the TPU-native precision story.
+"""f32 conformance mode — the fast-precision story.
 
 The reference runs its suite only in real64 (wp selection,
 /root/reference/src/lsqr_kinds.F90:16-24) and documents that iteration
-counts are precision-sensitive (lsqr.f90:429-430). TPU-native fast mode is
+counts are precision-sensitive (lsqr.f90:429-430). The fast mode is
 f32; this module characterizes the 18-problem Paige–Saunders suite at f32
-(VERDICT.md round-1 item 9): every problem terminates cleanly (istop 1/3 —
+every problem terminates cleanly (istop 1/3 —
 never 4/5), with solution accuracy degrading gracefully with conditioning.
 
 Also covered: the mixed-precision mode (f32 vectors + f64 scalar
@@ -12,7 +12,7 @@ recurrence, ``LSQROptions(scalar_dtype='float64')``). Measured finding,
 worth keeping as a pinned fact: the mixed mode reproduces the pure-f32
 iterates EXACTLY on this suite — f32 LSQR accuracy is bound by the f32
 vectors (the bidiagonalization products), not by scalar accumulation, so
-the expensive part of the precision budget is exactly where TPU hardware
+the expensive part of the precision budget is exactly where the device
 spends it.
 """
 

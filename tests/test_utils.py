@@ -164,7 +164,7 @@ def test_sibling_checkpointed_bit_identical(rng):
     m = n = 600
     data = rng.standard_normal((3, m))
     data[1] += 5.0
-    A = dia_operator(m, n, (-1, 0, 2), data, use_pallas=False)
+    A = dia_operator(m, n, (-1, 0, 2), data)
     b = rng.standard_normal(m)
 
     ref = lsmr(A, b, 0.01, atol=1e-9, btol=1e-9)
@@ -197,7 +197,7 @@ def test_sibling_checkpoint_preemption_resume(rng, tmp_path):
     m = n = 600
     data = rng.standard_normal((3, m))
     data[1] += 5.0
-    A = dia_operator(m, n, (-1, 0, 2), data, use_pallas=False)
+    A = dia_operator(m, n, (-1, 0, 2), data)
     b = rng.standard_normal(m)
     ref = lsmr(A, b, 0.02, atol=1e-10, btol=1e-10)
 

@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 
 import lsqr_tpu as lt
-from lsqr_tpu.ops.pallas_spmv import zdia_pair
 from lsqr_tpu.ops.zdia import ZDIAOperator, zdia_operator, zdia_pair_xla
 
 
@@ -92,15 +91,16 @@ def test_zdia_pair_xla_matches_products(rng):
         (1024, 1024, (0,), 1024),                # single tile
     ],
 )
-@pytest.mark.slow
 def test_zdia_pair_kernel_interpret(rng, m, n, offsets, tm):
+    """The blocked XLA complex pair on complex64 planes, with blocks of
+    ``tm`` rows (ragged last blocks, offsets wider than a block)."""
     data, A = _dense_from_offsets(rng, m, n, offsets, np.complex64)
     op = zdia_operator(m, n, offsets, data)
     win = _zvec(rng, n)
     y = _zvec(rng, m)
     c1, c2 = np.float32(0.7), np.float32(1.3)
-    u, z = zdia_pair(op.dr, op.di, jnp.asarray(y), jnp.asarray(win), c1, c2,
-                     offsets=offsets, m=m, n=n, interpret=True, tm=tm)
+    u, z = zdia_pair_xla(op.dr, op.di, jnp.asarray(y), jnp.asarray(win),
+                         c1, c2, offsets=offsets, m=m, n=n, block=tm)
     A64 = A.astype(np.complex128)
     u_ref = A64 @ (win.astype(np.complex128) * float(c1)) - float(c2) * y
     z_ref = A64.conj().T @ u_ref
@@ -112,21 +112,21 @@ def test_zdia_pair_kernel_interpret(rng, m, n, offsets, tm):
 
 
 def test_zdia_pallas_matvec_paths_match_xla(rng):
-    # use_pallas=True on CPU runs dia_matvec per plane in interpret mode;
-    # products must match the blocked XLA combination
+    """The plane-split products against the dense complex oracle,
+    eager and jitted."""
     m, n, offsets = 2048, 2048, (-7, 0, 3)
     data, A = _dense_from_offsets(rng, m, n, offsets, np.complex64)
-    op_x = zdia_operator(m, n, offsets, data, use_pallas=False)
-    op_p = zdia_operator(m, n, offsets, data, use_pallas=True)
+    op = zdia_operator(m, n, offsets, data)
+    A64 = np.asarray(A, np.complex128)
     x = _zvec(rng, n)
     y = _zvec(rng, m)
-    if jax.default_backend() != "tpu":
-        pytest.skip("interpret-mode plane matvec is exercised on TPU only "
-                    "(dia_matvec interpret flag is internal)")
-    np.testing.assert_allclose(np.asarray(op_p.matvec(x)),
-                               np.asarray(op_x.matvec(x)), rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(op_p.rmatvec(y)),
-                               np.asarray(op_x.rmatvec(y)), rtol=2e-6)
+    for mv, rmv in ((op.matvec, op.rmatvec),
+                    (jax.jit(op.matvec), jax.jit(op.rmatvec))):
+        np.testing.assert_allclose(np.asarray(mv(x)), A64 @ np.asarray(x),
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(np.asarray(rmv(y)),
+                                   A64.conj().T @ np.asarray(y),
+                                   rtol=2e-5, atol=2e-5)
 
 
 def _banded_problem(rng, m=400, n=400, dtype=np.complex128):
